@@ -29,11 +29,6 @@ What can be differentiated:
 - **Initial-state leaves** via ``state.``-prefixed paths (e.g.
   ``state.ocean.sst``): classic adjoint initial-condition sensitivity.
 
-Every QD_PALLAS_* kernel is forced off for adjoint traces
-(``pallas_call`` has no VJP rule); the jnp forms are numerically locked to
-the kernels by the interpret-mode parity tests, so gradients are taken
-through the same math the production step computes.
-
 Verified against central finite differences through the FULL coupled model
 — across routing events and the ecology/phyto daily boundaries — in
 ``tests/test_adjoint.py``.
@@ -48,18 +43,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import flags
 from . import model as M
-
-# pallas_call has no VJP; the jnp paths are parity-locked to the kernels
-# (tests/test_pallas_ocean.py and the interpret-mode advect/hyper4/median
-# parity tests), so adjoint traces force them off.
-PALLAS_OFF = {
-    "QD_PALLAS_ADVECT": False,
-    "QD_PALLAS_HYPER4": False,
-    "QD_PALLAS_MEDIAN": False,
-    "QD_PALLAS_OCEAN": "0",
-}
 
 # Friendly names -> dotted paths. Only paths consumed inside the traced
 # step are valid injection targets (a path used in host-side NumPy during
@@ -131,9 +115,7 @@ def make_window_fn(model: M.Model, n_steps: int, *,
     over the last ``trailing_steps`` steps), or a callable
     ``series_dict -> scalar``.
 
-    The returned function is pure and jit/grad-composable. Compose and call
-    it under ``flags.overridden(PALLAS_OFF)`` (the convenience wrappers
-    below do) — Pallas kernels have no VJP.
+    The returned function is pure and jit/grad-composable.
     """
     seg = segment or default_segment(n_steps)
     if n_steps % seg:
@@ -168,29 +150,15 @@ def make_window_fn(model: M.Model, n_steps: int, *,
 
 
 def make_value_and_grad(model: M.Model, n_steps: int, **window_kw):
-    """Jitted ``(params, state) -> ((J, (final_state, series)), grads)``,
-    with the Pallas gates forced off for the trace."""
+    """Jitted ``(params, state) -> ((J, (final_state, series)), grads)``."""
     win = make_window_fn(model, n_steps, **window_kw)
-    vg = jax.jit(jax.value_and_grad(win, argnums=0, has_aux=True))
-
-    def call(params, state):
-        with flags.overridden(PALLAS_OFF):
-            return vg(params, state)
-
-    return call
+    return jax.jit(jax.value_and_grad(win, argnums=0, has_aux=True))
 
 
 def make_value(model: M.Model, n_steps: int, **window_kw):
-    """Forward-only jitted window under the same gate override, so its
-    compiled math is identical to what the gradient differentiates."""
-    win = make_window_fn(model, n_steps, **window_kw)
-    jwin = jax.jit(win)
-
-    def call(params, state):
-        with flags.overridden(PALLAS_OFF):
-            return jwin(params, state)
-
-    return call
+    """Forward-only jitted window: the same math the gradient
+    differentiates."""
+    return jax.jit(make_window_fn(model, n_steps, **window_kw))
 
 
 def calibrate(model: M.Model, state, param: str, x0: float, *,
@@ -230,7 +198,7 @@ def calibrate_joint(model: M.Model, state, priors: Dict[str, float],
                     segment: Optional[int] = None, verbose: bool = True):
     """Recover SEVERAL scalar physics parameters simultaneously by Adam
     descent on a trajectory-mismatch objective through the coupled model
-    (VERDICT r4 item 6; doc 19 §joint calibration).
+    (doc 19 §joint calibration).
 
     A synthetic truth runs the same window with the (withheld) ``truth``
     parameter values; the objective is the normalized squared mismatch of

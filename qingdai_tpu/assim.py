@@ -1,4 +1,4 @@
-"""Ensemble data assimilation: a batched LETKF analysis built for the MXU.
+"""Ensemble data assimilation: a batched LETKF analysis of batched matmuls.
 
 A capability the reference cannot express at all (its engine is one
 sequential NumPy loop over one state, `/root/reference/scripts/
@@ -6,15 +6,15 @@ run_simulation.py:1760-2490`): combine the vmapped ensemble
 (qingdai_tpu/ensemble.py) with observations into an analysis ensemble via
 the Local Ensemble Transform Kalman Filter (LETKF, Hunt/Kostelich/Szunyogh
 2007). This is the standard DA algorithm of operational NWP, and its
-structure is exactly what TPUs want:
+structure is exactly what an accelerator's matrix units want:
 
 - Every grid cell solves an INDEPENDENT k×k ensemble-space problem
   (k = members, 8-32). Batched over the 65k cells of the default grid the
-  whole analysis is three einsums that lower to MXU matmuls plus a batched
+  whole analysis is three einsums that lower to batched matmuls plus a batched
   matrix inverse-square-root.
 - The inverse square root [(k−1)I/ρ_infl + C]^{−1/2} is computed by a
   coupled Newton–Schulz iteration — pure batched matmuls, no
-  eigendecomposition, the same trick TPU-native optimizers (Shampoo) use.
+  eigendecomposition, the same trick matrix-root optimizers (Shampoo) use.
   An `eigh` reference path exists for verification (solver="eigh").
 - Observation-space ("R-") localization: each cell scales every
   observation's precision by a Gaspari–Cohn weight of great-circle
@@ -154,10 +154,20 @@ def great_circle_km(lat1, lon1, lat2, lon2, radius_m):
     return (2.0 * radius_m / 1e3) * jnp.arcsin(jnp.sqrt(jnp.clip(a, 0.0, 1.0)))
 
 
+# Every contraction of the analysis runs at full f32 (or f64) precision: a
+# GPU may otherwise run f32 matmuls in TF32 (~10 mantissa bits), and the
+# Newton–Schulz iteration below cannot converge to f32 accuracy that way.
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
+
+
 def inv_and_inv_sqrt_psd(A, iters: int = 25):
     """Batched (A^{-1}, A^{-1/2}) of SPD matrices via coupled Newton–Schulz.
 
-    Pure batched matmuls (MXU-friendly; no eigendecomposition): with
+    Pure batched matmuls (no eigendecomposition): with
     Y₀ = A/c, Z₀ = I and T = (3I − Z Y)/2,  Y ← Y T, Z ← T Z, then
     Y → (A/c)^{1/2} and Z → (A/c)^{-1/2}. The scale c bounds λmax via the
     ∞-norm so every eigenvalue of A/c lies in (0, 1]; per-iteration the
@@ -174,12 +184,12 @@ def inv_and_inv_sqrt_psd(A, iters: int = 25):
 
     def body(_, YZ):
         Y, Z = YZ
-        T = 0.5 * (3.0 * eye - Z @ Y)
-        return Y @ T, T @ Z
+        T = 0.5 * (3.0 * eye - _mm(Z, Y))
+        return _mm(Y, T), _mm(T, Z)
 
     Y, Z = jax.lax.fori_loop(0, iters, body, (Y, Z))
     inv_sqrt = Z / jnp.sqrt(c)
-    inv = (Z @ Z) / c
+    inv = _mm(Z, Z) / c
     return inv, inv_sqrt
 
 
@@ -187,8 +197,9 @@ def _inv_and_inv_sqrt_eigh(A):
     """Reference path: batched eigh-based (A^{-1}, A^{-1/2})."""
     w, V = jnp.linalg.eigh(A)
     w = jnp.maximum(w, 1e-30)
-    inv = jnp.einsum("...ij,...j,...kj->...ik", V, 1.0 / w, V)
-    inv_sqrt = jnp.einsum("...ij,...j,...kj->...ik", V, 1.0 / jnp.sqrt(w), V)
+    inv = jnp.einsum("...ij,...j,...kj->...ik", V, 1.0 / w, V, precision=_HI)
+    inv_sqrt = jnp.einsum("...ij,...j,...kj->...ik", V, 1.0 / jnp.sqrt(w), V,
+                          precision=_HI)
     return inv, inv_sqrt
 
 
@@ -221,7 +232,7 @@ def letkf_analysis(X, y, obs_cell, obs_field_idx, cell_lat, cell_lon,
         the background's. Counteracts the spread collapse that makes small
         ensembles stop listening to observations after a few dense-obs
         cycles. 0 disables; the analysis MEAN is untouched either way.
-      solver: "ns" (Newton–Schulz, MXU) or "eigh" (reference).
+      solver: "ns" (Newton–Schulz, batched matmuls) or "eigh" (reference).
 
     Returns analysis ensemble [k, F, C].
     """
@@ -250,9 +261,9 @@ def letkf_analysis(X, y, obs_cell, obs_field_idx, cell_lat, cell_lon,
 
     w_obs = rho * rinv[None, :]                      # [C, p] per-cell R^{-1}
 
-    # C_c = Y' diag(w_c) Y'^T  — one [C,p]x[p,k²] MXU matmul
+    # C_c = Y' diag(w_c) Y'^T  — one [C,p]x[p,k²] matmul
     YY = (Yp[:, None, :] * Yp[None, :, :]).reshape(k * k, p)   # [k², p]
-    Cmat = (w_obs @ YY.T).reshape(C, k, k)           # [C, k, k]
+    Cmat = _mm(w_obs, YY.T).reshape(C, k, k)         # [C, k, k]
     A = Cmat + (k - 1) / inflation * jnp.eye(k, dtype=dtype)[None]
 
     if solver == "eigh":
@@ -261,13 +272,13 @@ def letkf_analysis(X, y, obs_cell, obs_field_idx, cell_lat, cell_lon,
         Ainv, Ainv_sqrt = inv_and_inv_sqrt_psd(A, iters=ns_iters)
 
     # mean weights w̄_c = A^{-1} Y' (w_c ∘ d):  [C,p]@[p,k] then batched matvec
-    g = w_obs @ (Yp * d[None, :]).T                  # [C, k]
-    wbar = jnp.einsum("cij,cj->ci", Ainv, g)         # [C, k]
+    g = _mm(w_obs, (Yp * d[None, :]).T)              # [C, k]
+    wbar = jnp.einsum("cij,cj->ci", Ainv, g, precision=_HI)  # [C, k]
     W = jnp.sqrt(jnp.asarray(k - 1, dtype)) * Ainv_sqrt  # [C, k, k]
 
     # x_i^a = x̄ + X'(w̄ + W e_i): per-cell [k]-matvec batched over (F, C)
-    incr_mean = jnp.einsum("nfc,cn->fc", Xp, wbar)   # [F, C]
-    pert = jnp.einsum("nfc,cni->ifc", Xp, W)         # [k, F, C]
+    incr_mean = jnp.einsum("nfc,cn->fc", Xp, wbar, precision=_HI)  # [F, C]
+    pert = jnp.einsum("nfc,cni->ifc", Xp, W, precision=_HI)        # [k, F, C]
     if rtps and rtps > 0.0:
         # W is symmetric-sqrt so pert is exactly zero-mean: std == rms
         sig_b = jnp.sqrt(jnp.mean(Xp * Xp, axis=0))   # [F, C]
@@ -330,7 +341,7 @@ def make_analysis_fn(model, cfg: AssimConfig, n_obs: int):
 
 
 def make_multivar_analysis_fn(model, cfg: AssimConfig, obs_spec):
-    """Multivariate-observation analysis (VERDICT r4 item 5).
+    """Multivariate-observation analysis.
 
     ``obs_spec`` is a tuple of ``(field_name, n_obs, obs_err)`` triples —
     e.g. ``(("T_s", 250, 0.5), ("sst", 150, 0.3), ("q", 100, 5e-4))``. The
@@ -475,19 +486,19 @@ def letkf_param_analysis(theta, Yp, d, obs_err, inflation=1.0, rtps=0.0,
     th = th.astype(dtype)
     p = d.shape[0]
     rinv = 1.0 / (jnp.broadcast_to(jnp.asarray(obs_err, dtype), (p,)) ** 2)
-    C = (Yp * rinv[None, :]) @ Yp.T                       # [k, k]
+    C = _mm(Yp * rinv[None, :], Yp.T)                     # [k, k]
     A = C + (k - 1) / inflation * jnp.eye(k, dtype=dtype)
     if solver == "eigh":
         Ainv, Ainv_sqrt = _inv_and_inv_sqrt_eigh(A)
     else:
         Ainv, Ainv_sqrt = inv_and_inv_sqrt_psd(A[None], iters=ns_iters)
         Ainv, Ainv_sqrt = Ainv[0], Ainv_sqrt[0]
-    wbar = Ainv @ ((Yp * (rinv * d)[None, :]).sum(axis=-1))   # [k]
+    wbar = _mm(Ainv, (Yp * (rinv * d)[None, :]).sum(axis=-1))  # [k]
     W = jnp.sqrt(jnp.asarray(k - 1, dtype)) * Ainv_sqrt       # [k, k]
     thbar = jnp.mean(th, axis=0)                              # [n]
     Tp = th - thbar[None]                                     # [k, n]
-    incr = Tp.T @ wbar                                        # [n]
-    pert = jnp.einsum("ki,kn->in", W, Tp)                     # [k, n]
+    incr = _mm(Tp.T, wbar)                                    # [n]
+    pert = jnp.einsum("ki,kn->in", W, Tp, precision=_HI)      # [k, n]
     if rtps and rtps > 0.0:
         sig_b = jnp.sqrt(jnp.mean(Tp * Tp, axis=0))
         sig_a = jnp.sqrt(jnp.mean(pert * pert, axis=0))

@@ -1,6 +1,6 @@
 """Atmosphere core: stabilized shallow-water-like grid-point step.
 
-Pure-functional TPU re-expression of ``SpectralModel.time_step``
+Pure-functional re-expression of ``SpectralModel.time_step``
 (/root/reference/pygcm/dynamics.py:260-667): humidity E/condensation,
 Newton/energy-blend surface temperature with sea ice, semi-Lagrangian
 advection of T_s/q, height relaxation + atmospheric energy tendency, momentum
@@ -102,7 +102,8 @@ def atmos_step(grid: Grid, cfg: SimConfig, static: StaticFields,
         if dcfg.pcond_ref is not None:
             P_ref = jnp.asarray(dcfg.pcond_ref, T_s.dtype)
         else:
-            P_ref = masked_median_of_positive(P_cond, fallback=1e-6)
+            P_ref = masked_median_of_positive(P_cond, 1e-6,
+                                              grid.mesh is not None)
         p_term = jnp.tanh(jnp.where(P_ref > 0, P_cond / P_ref, 0.0))
         cloud_eff = jnp.clip(cloud + dcfg.k_q * rh_excess + dcfg.k_p * p_term, 0.0, 1.0)
     else:

@@ -1,7 +1,7 @@
 """α/β biodiversity diagnostics (per-pixel effective species number,
 Whittaker β, local Bray-Curtis) with plots + community snapshots.
 
-TPU re-expression of /root/reference/pygcm/ecology/diversity.py: the metric
+Re-expression of /root/reference/pygcm/ecology/diversity.py: the metric
 kernels are pure jnp (so they can also run on device as part of a diagnostics
 pass); plotting/persistence stay host-side.
 """

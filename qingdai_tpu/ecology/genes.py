@@ -1,7 +1,7 @@
 """Gene definitions: host-side dataclass + packed device arrays.
 
 The reference keeps a Python list of ``Genes`` objects with variable-length
-peak lists (/root/reference/pygcm/ecology/genes.py:10-92). For the TPU the
+peak lists (/root/reference/pygcm/ecology/genes.py:10-92). On the device the
 genome is packed into fixed-shape arrays [S_slots, P_MAX, 3] with zero-height
 padding, so mutation (adapter.py:471-515) can run inside the jitted daily step.
 """

@@ -1,6 +1,6 @@
 """Vectorized sampled-individual pool (P018 M3+).
 
-TPU re-expression of /root/reference/pygcm/ecology/individuals.py. The
+Re-expression of /root/reference/pygcm/ecology/individuals.py. The
 reference is already mostly array-coded; the remaining per-cell Python loop in
 ``step_daily`` (individuals.py:259-306) becomes gather/scatter index ops here.
 Sampled cells and per-individual species ids are drawn once at build time with

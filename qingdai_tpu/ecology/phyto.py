@@ -1,4 +1,4 @@
-"""Ocean phytoplankton & ocean color (P017), TPU-native.
+"""Ocean phytoplankton & ocean color (P017).
 
 Re-expression of /root/reference/pygcm/ecology/phyto.py: S-species mixed-layer
 chlorophyll with spectral light limitation, Q10 temperature factor,
@@ -150,9 +150,17 @@ def _alpha_bands_from_species(ps: PhytoStatic, cfg: PhytoConfig, C_phyto):
     """A_b = A_pure_b + Σ_s c_s·Shape_s[b]·Chl_s^p_s (phyto.py:314-335)."""
     chl = jnp.maximum(C_phyto, 0.0)
     term = safegrad.pow_safe(chl, ps.p_reflect_s[:, None, None])          # [S,H,W]
-    contrib = jnp.einsum("sb,shw->bhw", ps.shape_sb * ps.c_reflect_s[:, None], term)
+    contrib = jnp.einsum("sb,shw->bhw", ps.shape_sb * ps.c_reflect_s[:, None], term,
+                         precision=jax.lax.Precision.HIGHEST)
     A = ps.Apure_b[:, None, None] + contrib
     return jnp.clip(A, cfg.alpha_min, cfg.alpha_max)
+
+
+def species_light(ps: PhytoStatic, Ibar_b):
+    """Species light proxy E_s = Σ_b Ī_b Shape_s[b] Δλ_b (phyto.py:358-367)."""
+    return jnp.einsum("sb,bhw->shw", ps.shape_sb,
+                      Ibar_b * ps.dlam_b[:, None, None],
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def phyto_step_daily(ps: PhytoStatic, st: PhytoState, cfg: PhytoConfig,
@@ -169,8 +177,7 @@ def phyto_step_daily(ps: PhytoStatic, st: PhytoState, cfg: PhytoConfig,
                        (1.0 - jnp.exp(-x)) / jnp.clip(x, 1e-12, None))
     Ibar_b = jnp.clip(I_b_surf * factor, 0.0, jnp.inf)
 
-    # species light proxy E_s = Σ_b Ī_b Shape_s[b] Δλ_b (phyto.py:358-367)
-    E_s = jnp.einsum("sb,bhw->shw", ps.shape_sb, Ibar_b * ps.dlam_b[:, None, None])
+    E_s = species_light(ps, Ibar_b)
 
     muL_s = jnp.tanh(cfg.alpha_P * E_s / jnp.maximum(ps.mu_max_s[:, None, None], 1e-6))
     fT = jnp.power(cfg.Q10, (T_w - cfg.T_ref) / 10.0)

@@ -6,7 +6,7 @@ Two implementations of the reference's per-individual plant
 - ``Plant``: host-side scalar object with the reference's API
   (update_substep / update_substep_bands / update_one_day → PlantReport) for
   offline studies and tests.
-- ``PlantPool``: the TPU-native form — every per-plant field is a jnp array
+- ``PlantPool``: the on-device form — every per-plant field is a jnp array
   over N plants and the SEED→GROWING→MATURE→SENESCENT→DEAD state machine is
   integer select logic, so a whole population advances in one fused kernel.
 """
@@ -195,7 +195,7 @@ class Plant:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
 class PlantPoolState:
-    """N plants as arrays (TPU form of the Plant dataclass)."""
+    """N plants as arrays (array form of the Plant dataclass)."""
     state: jax.Array            # int8 PlantState
     age_days: jax.Array
     biomass_root: jax.Array

@@ -1,6 +1,6 @@
 """Grid-scale population manager: prognostic layered LAI [S, K, H, W].
 
-TPU re-expression of /root/reference/pygcm/ecology/population.py and the
+Re-expression of /root/reference/pygcm/ecology/population.py and the
 mutation machinery of adapter.py:429-515. Structural changes for XLA:
 
 - The species axis is *static* at ``S_slots = max(QD_ECO_NS, QD_ECO_SPECIES_MAX)``
@@ -79,7 +79,7 @@ class EcoState:
 
 
 def build_eco(grid_shape, land_mask, cfg: EcologyConfig, dtype=jnp.float32):
-    """Construct (EcoStatic, EcoState) from config/env — the TPU equivalent of
+    """Construct (EcoStatic, EcoState) from config/env — the on-device equivalent of
     EcologyAdapter.__init__ + PopulationManager.__init__."""
     H, W = grid_shape
     bands = spec.make_bands(cfg)

@@ -4,16 +4,11 @@ A capability the reference cannot express at all — its engine is one
 sequential NumPy loop over one state (`/root/reference/scripts/
 run_simulation.py:1760-2490`), so an N-member ensemble costs N full runs.
 Here the whole coupled step is a pure function of the state pytree, so
-`jax.vmap` lifts it over a leading member axis mechanically. Measured
-economics (docs/perf-notes.md "Ensemble mode"): the marginal member costs
-~0.25 ms/step vs 0.33 for a dedicated single-planet run, peaking at
-8 members = 102.7 aggregate member·sim-years/hour on one v5e chip — a
-modest aggregate-throughput win over the best single-planet session
-(88–99), NOT the super-linear scaling the op-count-bound hypothesis
-predicted (the vmapped step is vector-issue-bound like the single step;
-16 members regress on measured VMEM strip-mining — docs/perf-notes.md). The larger value is the
-capability: N decorrelated members advance in one process, one compile,
-one scan, with per-member diagnostic streams and spread curves.
+`jax.vmap` lifts it over a leading member axis mechanically. The ensemble's
+throughput on the GPU (member·sim-years/hour against N) is not measured
+yet. Its value is the capability: N decorrelated members advance in one
+process, one compile, one scan, with per-member diagnostic streams and
+spread curves.
 
 Ensembles are the standard workload of real climate science (internal
 variability, forecast spread, perturbed-physics studies), which makes this
@@ -113,7 +108,8 @@ def init_ensemble(model: M.Model, n_members: int, seed: int = 42,
     """
     if n_members < 1:
         raise ValueError(f"n_members must be >= 1, got {n_members}")
-    base = M.init_world(model, seed=seed)
+    base = M.init_world(model, seed=seed,
+                        dtype=model.build_dtype or jnp.float32)
     keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(
         base.rng, jnp.arange(n_members, dtype=jnp.uint32))
     amps = jnp.where(jnp.arange(n_members) == 0, 0.0,

@@ -1,36 +1,28 @@
 """Trace-time feature gates, frozen from the ``QD_*`` env at config time.
 
 CLAUDE.md rule: no ambient env reads inside jit-traced code. These gates
-are consulted while TRACING (windowed advection, hyperdiffusion, medians,
-compensated sums, the ocean substep megakernel), which happens *after*
+are consulted while TRACING (windowed advection, SPMD halos, compensated
+sums), which happens *after*
 set-and-restore harnesses like ``__graft_entry__._build_world`` have
 restored the environment — an ``os.getenv`` there silently reads the
-wrong value (bench.py ``--ablate``'s ``-pallas_*`` rows measured the
-unmodified build before this module existed). ``SimConfig.from_env()``
+wrong value (a set-and-restore ablation once measured the unmodified
+build this way). ``SimConfig.from_env()``
 refreshes the snapshot, so the values seen at trace time are the ones in
 force when the config was frozen. Code that flips one of these vars
 without rebuilding a ``SimConfig`` must call :func:`refresh` itself.
 
 Boolean vocabulary is uniform across the family: unset → the default
 below; ``0/false/no/off`` (any case) → off; anything else → on.
-``QD_PALLAS_OCEAN`` additionally accepts ``interpret`` (engage the Pallas
-interpreter on any backend — CPU parity tests).
 """
 
-import contextlib
 import os
 
 _BOOL_DEFS = {
     "QD_SPMD_HALO": True,        # shard_map K-wide halo exchanges under SPMD
     "QD_ADV_POLAR_MATMUL": False,  # one-hot polar interp (measured slower)
-    # one gather for both polar bands: measured NEUTRAL-to-slightly-negative
-    # at 361×720 (1.432 vs 1.401 ms/step same-session best-of-3 — gather
-    # cost ∝ index rows, and merging doesn't reduce rows; perf-notes
-    # round-5). Kept for A/B; default off.
+    # one gather for both polar bands (kept for A/B; default off; not yet
+    # measured on the GPU)
     "QD_ADV_BAND_MERGE": False,
-    "QD_PALLAS_ADVECT": True,    # VMEM window-advection megakernel
-    "QD_PALLAS_HYPER4": True,    # VMEM nabla4 chain megakernel
-    "QD_PALLAS_MEDIAN": True,    # VMEM bisection median
     "QD_FF_SUMS": True,          # float-float compensated reductions
 }
 _OFF = ("0", "false", "no", "off")
@@ -44,13 +36,7 @@ def _read_bool(name: str) -> bool:
 
 
 def _read_all() -> dict:
-    d = {k: _read_bool(k) for k in _BOOL_DEFS}
-    # default OFF since the 2026-08-18 interleaved A/B: the jnp substeps
-    # beat the whole-substep VMEM kernel by ~18 µs/step in 8/8 rounds
-    # (docs/perf-notes.md "Per-subsystem attribution") — XLA already fuses
-    # the substep chain well, and the kernel serializes what XLA pipelines.
-    d["QD_PALLAS_OCEAN"] = os.getenv("QD_PALLAS_OCEAN", "0").strip().lower()
-    return d
+    return {k: _read_bool(k) for k in _BOOL_DEFS}
 
 
 _snapshot = _read_all()
@@ -71,30 +57,3 @@ def enabled(name: str) -> bool:
     """Frozen boolean gate value (raises KeyError for unknown names)."""
     return bool(_snapshot[name])
 
-
-def pallas_ocean_mode() -> str:
-    """Frozen QD_PALLAS_OCEAN string: '1'-ish, an _OFF spelling, or
-    'interpret'."""
-    return _snapshot["QD_PALLAS_OCEAN"]
-
-
-@contextlib.contextmanager
-def overridden(overrides: dict):
-    """Temporarily replace gate values in the frozen snapshot.
-
-    For call sites that must trace with specific gates regardless of the
-    ambient config — e.g. the adjoint window (adjoint.py) traces with every
-    QD_PALLAS_* kernel off because ``pallas_call`` has no VJP rule. The
-    override is only seen by traces that happen INSIDE the with-block, so
-    wrap the (first) call of the jitted function, not just its construction.
-    """
-    global _snapshot
-    unknown = set(overrides) - set(_snapshot)
-    if unknown:
-        raise KeyError(f"unknown flag(s): {sorted(unknown)}")
-    old = _snapshot
-    _snapshot = {**old, **overrides}
-    try:
-        yield
-    finally:
-        _snapshot = old

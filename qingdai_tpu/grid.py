@@ -1,6 +1,6 @@
 """Spherical grid metrics, precomputed once as device arrays.
 
-TPU-native counterpart of the reference's ``SphericalGrid``
+Counterpart of the reference's ``SphericalGrid``
 (/root/reference/pygcm/grid.py:10-96). All latitude-dependent metric maps
 (cosφ with the several caps the reference uses, Coriolis, area weights, metric
 lengths) are precomputed here so the jitted step functions are pure array math.

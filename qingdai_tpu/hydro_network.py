@@ -4,8 +4,8 @@ Produces the same artifact schema as the reference's
 scripts/generate_hydrology_maps.py (pit-filled elevation, steepest-descent D8
 with spherical distances, Kahn topological order, terminal-sink lakes with
 outlets) but with array-vectorized NumPy instead of per-cell Python loops, and
-adds the *level map* (longest-path depth in the D8 DAG) that the TPU routing
-kernel uses to run the reference's sequential flow_order loop
+adds the *level map* (longest-path depth in the D8 DAG) that the on-device
+routing event uses to run the reference's sequential flow_order loop
 (routing.py:261-298) as L parallel scatter-adds.
 """
 

@@ -38,7 +38,18 @@ except ImportError:
     _NC4Dataset = None
     HAVE_NETCDF4 = False
 
-import h5py
+def _h5py():
+    """Import h5py where a file is opened, not when the package loads: the
+    simulation itself needs no file IO, and a missing h5py should only stop
+    the restart or export that actually needs it."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "h5py is required to read or write NetCDF files when netCDF4 is "
+            "not installed (pip install h5py)") from e
+    return h5py
+
 
 _DTYPE_MAP = {
     "f4": np.float32, "f8": np.float64,
@@ -109,6 +120,7 @@ class _H5Dataset:
     """h5py-backed netCDF4.Dataset lookalike (write + read)."""
 
     def __init__(self, path, mode="r"):
+        h5py = _h5py()
         self._f = h5py.File(path, mode)
         self._dims = {}
         self._mode = mode

@@ -329,7 +329,7 @@ def save_ecology(path, grid_lat, grid_lon, eco_state, bands, w_b,
                 _np(w_b).astype(np.float32)
             ds.createVariable("R_species_nb", "f4", ("species", "band"))[:] = \
                 R_species.astype(np.float32)
-            # extended (TPU) fields for exact resume — ignored by the reference
+            # extended fields for exact resume — ignored by the reference
             ds.createVariable("seed_bank", "f4", ("lat", "lon"))[:] = \
                 _np(eco_state.seed_bank).astype(np.float32)
             ds.createVariable("age_days", "f4", ("lat", "lon"))[:] = \

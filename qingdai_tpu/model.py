@@ -118,7 +118,7 @@ def build_model(cfg: SimConfig, land_mask, base_albedo, friction,
     plan_atmos = make_advect_plan(
         cfg.run.n_lat, grid.dlat_rad, grid.dlon_rad, dt, const.PLANET_RADIUS,
         np.asarray(grid.coslat_cap_tiny)[:, 0], vmax=cfg.dynamics.max_wind,
-        k_lon_max=cfg.dynamics.adv_kmax, k2=cfg.dynamics.adv_polar_k2)
+        k_lon_max=cfg.dynamics.adv_kmax)
     plan_ocean = make_advect_plan(
         cfg.run.n_lat, grid.dlat_rad, grid.dlon_rad, dt / max(1, n_sub),
         const.PLANET_RADIUS, np.asarray(grid.coslat_cap_05)[:, 0],
@@ -226,9 +226,9 @@ def make_step_fn(model: Model, daily_mode: str = "cond",
       - "off":  statically not a boundary (steps 1..N-1 of a day);
       - "on":   statically a boundary (step N of a day).
     The static modes exist for the day-aligned chunk path: carrying the daily
-    block behind a per-step lax.cond costs ~0.13 ms/step on TPU (the cond
-    forces buffer copies of the eco tensors every iteration), while a
-    straight-line daily step once per day costs its true ~4 ms/day.
+    block behind a per-step lax.cond forces buffer copies of the eco tensors
+    every iteration, while a straight-line daily step once per day costs
+    only its own work.
 
     ``phyto_mode`` does the same for the phytoplankton daily cond (its
     accumulator fires on step 1 of a fresh run and then at each day
@@ -331,7 +331,8 @@ def make_step_fn(model: Model, daily_mode: str = "cond",
         if pcfg.p_ref is not None:
             P_ref = jnp.asarray(pcfg.p_ref, precip.dtype)
         else:
-            P_ref = masked_median_of_positive(precip, fallback=1e-6)
+            P_ref = masked_median_of_positive(precip, 1e-6,
+                                              grid.mesh is not None)
         C_from_P = ph.cloud_from_precip(precip, C_max=pcfg.c_max, P_ref=P_ref,
                                         smooth_sigma=1.0, mesh=grid.mesh,
                                         axis_name=grid.mesh_axis)
@@ -730,8 +731,7 @@ def make_chunk_fn(model: Model, chunk_steps: Optional[int] = None,
     ``diag_every`` (default ``cfg.run.diag_every``, QD_DIAG_EVERY): emit the
     diag scalars only on every Nth step — the in-between steps run a
     ``with_diags=False`` step that skips the ~20 diag-only reductions and
-    the per-leaf stacking (the measured diag cost at 361×720, perf-notes
-    roofline). The returned diag leaves then have leading length n//N;
+    the per-leaf stacking. The returned diag leaves then have leading length n//N;
     row i samples step (i+1)·N−1 of the chunk (stride N ending on the last
     step, so day-boundary steps stay sampled in aligned mode). The state
     trajectory is bit-identical to diag_every=1. Falls back to 1 when N
@@ -752,13 +752,11 @@ def make_chunk_fn(model: Model, chunk_steps: Optional[int] = None,
     unroll = max(1, model.cfg.run.scan_unroll)
 
     # The diag dict is ~40 independent scalars; carried through lax.scan as
-    # separate leaves each costs a dynamic-update-slice per step (measured
-    # ~12 µs/step of the 0.30 ms step at 181×360). Packed into one vector
-    # the scan stacks ONE [steps, D] array; unpacked back after the scan so
-    # the external API is unchanged. Default OFF: measured ~4% SLOWER
-    # (0.3515 vs 0.3375 ms/step best-of same-session) — the 40-operand
-    # scalar stack costs more than the per-leaf updates it replaces
-    # (perf-notes "Negative results").
+    # separate leaves each costs a dynamic-update-slice per step. Packed into
+    # one vector the scan stacks ONE [steps, D] array; unpacked back after
+    # the scan so the external API is unchanged. Default OFF: the 40-operand
+    # scalar stack measured slower than the per-leaf updates it replaces;
+    # not yet measured on the GPU.
     # frozen into SimConfig like every other knob (CLAUDE.md config rule):
     # an ambient env read here would bypass set-and-restore scripts and the
     # world's _chunk_key cache

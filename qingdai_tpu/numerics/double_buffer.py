@@ -1,4 +1,4 @@
-"""Atomic step updates: the P021 double-buffering discipline, TPU edition.
+"""Atomic step updates: the P021 double-buffering discipline, functional edition.
 
 The reference enforces read/write separation inside a mutating step with
 ``DoubleBufferingArray`` (/root/reference/pygcm/numerics/double_buffer.py:47-184).

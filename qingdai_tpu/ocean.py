@@ -1,4 +1,4 @@
-"""Wind-driven barotropic slab ocean (P011/P012), TPU-native.
+"""Wind-driven barotropic slab ocean (P011/P012).
 
 Re-expression of /root/reference/pygcm/ocean.py:265-533 with one structural
 change: the reference picks its substep count per call from a CFL estimate of
@@ -58,8 +58,8 @@ def _polar_row_mean(F, ocean_mask, row):
 
 
 def polar_scalar_average_fill(F, ocean_mask):
-    """Replace both pole rows by their ocean ring means in ONE fused pass —
-    a per-row .at[row].set() copies the whole buffer per row on TPU."""
+    """Replace both pole rows by their ocean ring means in ONE fused pass
+    (a per-row .at[row].set() would copy the whole buffer per row)."""
     H = F.shape[0]
     rows = jax.lax.broadcasted_iota(jnp.int32, F.shape, 0)
     top = _polar_row_mean(F, ocean_mask, 0)
@@ -153,60 +153,6 @@ def ocean_step(grid: Grid, cfg: OceanConfig, land_mask,
 
     if tracers is not None and n_sub != 1:
         raise ValueError("shared-gather tracers require n_sub == 1")
-
-    # Single-chip fast path: the whole substep loop as ONE VMEM megakernel
-    # (ops/pallas_ocean.py) — same numerics, ~40 HBM-pass ops collapsed into
-    # one read/compute/write. Falls through to the jnp scan for multi-chip,
-    # non-default cadences, or plans that need the exact polar gather.
-    from .ops.advect import plan_shifts
-    from .ops.pallas_ocean import (ocean_substeps_pallas, use_pallas_ocean,
-                                   GEO_F, GEO_COS05, GEO_COS, GEO_COS_TINY,
-                                   GEO_R_EXTRA, GEO_LAND, GEO_OPEN,
-                                   GEO_UNDER, GEO_W_OCEAN, GEO_K4_U, N_GEO)
-    n_st = 1 + (tracers.shape[0] if tracers is not None else 0)
-    engage, interp = use_pallas_ocean(cfg, adv_plan, ocn.sst.shape,
-                                      ocn.sst.dtype, n_sub, n_st)
-    if engage:
-        dtype = ocn.sst.dtype
-        zero2 = jnp.zeros_like(ocn.sst)
-        geo = jnp.stack([
-            jnp.broadcast_to(grid.f, zero2.shape).astype(dtype),
-            jnp.broadcast_to(coslat, zero2.shape).astype(dtype),
-            jnp.broadcast_to(grid.coslat, zero2.shape).astype(dtype),
-            jnp.broadcast_to(grid.coslat_cap_tiny, zero2.shape).astype(dtype),
-            jnp.broadcast_to(r_extra, zero2.shape).astype(dtype),
-            jnp.where(on_land, 1.0, 0.0).astype(dtype),
-            jnp.where(ocean_mask & (~ice_mask), 1.0, 0.0).astype(dtype),
-            jnp.where(ocean_mask & ice_mask, 1.0, 0.0).astype(dtype),
-            (grid.area_w * ocean_mask).astype(dtype),
-            jnp.broadcast_to(k4_u, zero2.shape).astype(dtype),
-            jnp.broadcast_to(k4_v, zero2.shape).astype(dtype),
-            jnp.broadcast_to(k4_eta, zero2.shape).astype(dtype),
-        ])
-        assert geo.shape[0] == N_GEO
-        forc = jnp.stack([tau_x / (cfg.rho_w * cfg.H_m),
-                          tau_y / (cfg.rho_w * cfg.H_m),
-                          Q_net / (cfg.rho_w * cfg.cp_w * cfg.H_m)])
-        mom = jnp.stack([ocn.uo, ocn.vo, ocn.eta])
-        st = (jnp.concatenate([ocn.sst[None], tracers], axis=0)
-              if tracers is not None else ocn.sst[None])
-        ms, ks = plan_shifts(adv_plan)
-        mom, st = ocean_substeps_pallas(
-            mom, st, forc, geo, ms=ms, ks=ks, n_sub=n_sub,
-            k4_nsub=cfg.k4_nsub, sub_dt=sub_dt, H_m=cfg.H_m,
-            r_bot=cfg.r_bot, g=g, a=a, dlat=dlat, dlon=dlon, K_h=cfg.K_h,
-            adv_alpha=cfg.adv_alpha, use_qnet=cfg.use_qnet,
-            ice_qfac=cfg.ice_qfac, cap=cfg.max_u_cap,
-            mean4=(cfg.outlier_method == "mean4"), eta_cap=cfg.eta_cap,
-            interpret=interp)
-        uo, vo, eta, sst = mom[0], mom[1], mom[2], st[0]
-        tracers_adv = st[1:] if tracers is not None else None
-        if cfg.polar_fix:
-            lons_rad = jnp.deg2rad(grid.lon)
-            sst = polar_scalar_average_fill(sst, ocean_mask)
-            uo, vo = polar_vector_average_fill(uo, vo, ocean_mask, lons_rad)
-        sst = jnp.clip(sst, cfg.ts_min, cfg.ts_max)
-        return OceanState(uo=uo, vo=vo, eta=eta, sst=sst), tracers_adv
 
     def substep(carry, _):
         uo, vo, eta, sst, trc = carry

@@ -1,6 +1,6 @@
 """Semi-Lagrangian advection: bilinear gather at departure points.
 
-TPU-native equivalent of the reference's map_coordinates-based scheme
+Equivalent of the reference's map_coordinates-based scheme
 (/root/reference/pygcm/jax_compat.py:190-216, dynamics.py:90-118,
 ocean.py:166-194). Departure indices wrap periodically on both axes (period N,
 matching jax.scipy.ndimage.map_coordinates mode='wrap', which is the
@@ -25,12 +25,11 @@ def bilinear_wrap_gather_multi(fields: jax.Array, dep_j: jax.Array,
     """Bilinear wrap interpolation of stacked ``fields`` [M, H, W] at shared
     fractional departure indices.
 
-    TPU note: XLA gather cost scales with the number of *index rows*, not the
-    gathered volume (a batch-8 gather costs the same as batch-1). So the four
-    bilinear corners are fetched in ONE gather from a [4·M, H, W] stack of
-    rolled copies (roll is a cheap lane/sublane rotation), and any number of
-    fields advected by the same wind share that single gather. This is ~4–8×
-    faster per field than four per-corner jnp.take calls.
+    The four bilinear corners are fetched in ONE gather from a [4·M, H, W]
+    stack of rolled copies, and any number of fields advected by the same
+    wind share that single gather: one index computation and one gather
+    for the whole stack instead of four per-corner jnp.take calls per field.
+    This is the plain reference the windowed form is checked against.
     """
     M, H, W = fields.shape
     out_shape = dep_j.shape  # departure points may cover a row subset
@@ -92,8 +91,8 @@ class AdvectPlan:
     ±200 m/s, dynamics.py:509-523, and ocean currents at the outlier cap,
     ocean.py:408-434), the departure offset is bounded: |Δi| ≤ k_lon except on
     the listed near-pole rows, |Δj| ≤ k_lat everywhere. Bounded offsets let
-    the bilinear interpolation run as masked rolls (pure vector ops, ~1.5×
-    faster than the TPU gather) with the exact gather only on ``exact_rows``.
+    the bilinear interpolation run as masked rolls (pure vector ops that fuse
+    into one pass) with the exact gather only on ``exact_rows``.
     """
     k_lon: int
     k_lat: int
@@ -102,15 +101,6 @@ class AdvectPlan:
     # [-ceil(b), floor(b)+1] instead of the integer-symmetric window
     b_lon: float = None
     b_lat: float = None
-    # two-tier polar treatment (QD_ADV_POLAR_K2, round 5): rows whose lon
-    # offset bound exceeds k_lon but not k2 are corrected by a SECOND, wide
-    # masked-roll window over just the polar bands (one Pallas VMEM pass),
-    # so only exact2_rows — the few rows hugging the pole caps — pay the
-    # generic gather, whose cost ∝ index rows (perf-notes roofline: the
-    # 64-row exact band is the largest single term of the 361×720 step).
-    k2: int = 0
-    exact2_rows: tuple = ()
-    b_lon2: float = None
     # multi-chip: when a Mesh is attached (parallel.mesh.shard_model_statics
     # does this), the roll window runs under shard_map with ONE K-wide halo
     # exchange per call (2 collective-permutes) instead of a
@@ -121,17 +111,15 @@ class AdvectPlan:
 
 
 def make_advect_plan(n_lat: int, dlat: float, dlon: float, dt: float, a: float,
-                     coslat_rows, vmax: float, k_lon_max: int = 4,
-                     k2: int = 0) -> AdvectPlan:
+                     coslat_rows, vmax: float, k_lon_max: int = 4) -> AdvectPlan:
     """Build a plan from the per-row metric cosφ and the velocity cap.
 
     k_lon is the smallest window covering every row whose offset bound is
     ≤ k_lon_max; rows beyond that (near the poles) fall back to the gather.
-    The default k_lon_max=4 is the measured sweet spot on TPU v5e at 181×360
-    with the 200 m/s wind cap: the window costs (2K+3)·(2K_lat+2) roll+FMA
-    passes over the full stack, while each excluded polar row costs one
-    360-index gather row — K∈{3,4,5} measured 0.576/0.568/0.582 ms/step on
-    the full coupled model vs 0.62 at K=8 and 0.68 at K=1."""
+    The window costs (2K+3)·(2K_lat+2) roll+FMA terms over the full stack,
+    while each excluded polar row costs one gather row; k_lon_max=4 (the
+    QD_ADV_KMAX default) balances the two at 181×360 with the 200 m/s wind
+    cap. The balance has not been re-measured on the GPU."""
     import numpy as np
     cos = np.asarray(coslat_rows, float).reshape(-1)
     bound_lon = vmax * dt / (a * cos * dlon)
@@ -144,20 +132,9 @@ def make_advect_plan(n_lat: int, dlat: float, dlon: float, dt: float, a: float,
     b_lon = float(covered.max()) if covered.size else float(k_lon)
     # small margin for f32 rounding of the departure points
     eps = 1e-5
-    exact2, b_lon2 = exact, None
-    if k2 and k2 > k_lon:
-        covered2 = bound_lon[(bound_lon > k_lon) & (bound_lon <= k2)]
-        if covered2.size:
-            exact2 = tuple(int(r) for r in np.nonzero(bound_lon > k2)[0])
-            b_lon2 = float(covered2.max()) * (1 + eps) + 1e-6
-        else:
-            k2 = 0
-    else:
-        k2 = 0
     return AdvectPlan(k_lon=k_lon, k_lat=max(1, k_lat), exact_rows=exact,
                       b_lon=b_lon * (1 + eps) + 1e-6,
-                      b_lat=float(b_lat) * (1 + eps) + 1e-6,
-                      k2=int(k2), exact2_rows=exact2, b_lon2=b_lon2)
+                      b_lat=float(b_lat) * (1 + eps) + 1e-6)
 
 
 def plan_shifts(plan: AdvectPlan):
@@ -174,6 +151,20 @@ def plan_shifts(plan: AdvectPlan):
     return ms, ks
 
 
+def _window_sum(fields, oj, oi, fj, fi, ms, ks):
+    """Σ over the (m, k) shift window of the masked bilinear weights times the
+    shifted stack: every term reads a shifted view of the SAME buffer, so XLA
+    fuses the whole double loop into a single stencil-like pass."""
+    one = jnp.asarray(1.0, fields.dtype)
+    out = jnp.zeros_like(fields)
+    for m in ms:
+        Wm = jnp.where(oj == m, one - fj, 0.0) + jnp.where(oj == m - 1, fj, 0.0)
+        for k in ks:
+            Wk = jnp.where(oi == k, one - fi, 0.0) + jnp.where(oi == k - 1, fi, 0.0)
+            out = out + (Wm * Wk)[None] * jnp.roll(fields, (-m, -k), axis=(1, 2))
+    return out
+
+
 def _advect_windowed(fields, dep_j, dep_i, plan: AdvectPlan):
     """Bilinear wrap interpolation via masked rolls (exact where offsets are
     within the window; plan.exact_rows overwritten by the generic gather)."""
@@ -187,40 +178,16 @@ def _advect_windowed(fields, dep_j, dep_i, plan: AdvectPlan):
     oj = j0.astype(jnp.int32) - jj
     oi = i0.astype(jnp.int32) - ii
 
-    K, KL = plan.k_lon, plan.k_lat
+    KL = plan.k_lat
     ms, ks = plan_shifts(plan)
-    one = jnp.asarray(1.0, fields.dtype)
     out = _windowed_accumulate_spmd(fields, oj, oi, fj, fi, ms, ks, plan)
     if out is None:
-        # single-chip TPU: the whole window on a VMEM-resident stack — one
-        # HBM read + one write instead of ~|ms|·|ks| shifted passes
-        from .pallas_advect import advect_windowed_pallas, use_pallas_advect
-        if use_pallas_advect(fields.shape, fields.dtype,
-                             n_passes=len(ms) * len(ks)):
-            out = advect_windowed_pallas(fields, dep_j, dep_i, ms, ks)
-    if out is None:
-        # direct accumulation over the (m, k) shift window: every term reads
-        # a shifted view of the SAME buffer, so XLA fuses the whole double
-        # loop into a single stencil-like pass — materializing lat-rolled
-        # stacks (the earlier formulation) cost n_m× more accumulator traffic
-        out = jnp.zeros_like(fields)
-        for m in ms:
-            Wm = jnp.where(oj == m, one - fj, 0.0) + jnp.where(oj == m - 1, fj, 0.0)
-            for k in ks:
-                Wk = jnp.where(oi == k, one - fi, 0.0) + jnp.where(oi == k - 1, fi, 0.0)
-                out = out + (Wm * Wk)[None] * jnp.roll(fields, (-m, -k), axis=(1, 2))
+        with jax.named_scope("advect_window"):
+            out = _window_sum(fields, oj, oi, fj, fi, ms, ks)
 
     if plan.exact_rows:
         gather_rows = plan.exact_rows
-        if _use_polar_k2(plan, fields):
-            bands2 = _exact_bands(plan.exact_rows, H)
-            if bands2 is not None:
-                out = _polar_band_window(fields, dep_j, dep_i, plan,
-                                         bands2, out)
-                gather_rows = plan.exact2_rows
-        bands = _exact_bands(gather_rows, H) if gather_rows else None
-        if not gather_rows:
-            return out
+        bands = _exact_bands(gather_rows, H)
         if bands is not None:
             # the exact rows hug the poles, so the gather only ever reads a
             # narrow latitude band — slicing the operand keeps XLA from
@@ -237,10 +204,8 @@ def _advect_windowed(fields, dep_j, dep_i, plan: AdvectPlan):
                 # offset into their halves. Exact: each half's dep_j_local
                 # stays in [0, hb-2] (plan velocity bound), so the corner
                 # rolls inside _bilinear_band_gather never read across the
-                # half boundary. Halves the polar gather/corner-stack event
-                # count per advection site — the step is issue-bound
-                # (perf-notes roofline), so fewer events, not fewer bytes,
-                # is the currency. A/B: QD_ADV_BAND_MERGE=0.
+                # half boundary. Halves the polar gather/corner-stack kernel
+                # count per advection site (fewer launches, same bytes).
                 lo0 = H - n_bot - margin
                 band_t = jnp.concatenate(
                     [fields[:, H - margin:], fields[:, :n_top + margin]],
@@ -283,103 +248,13 @@ def _advect_windowed(fields, dep_j, dep_i, plan: AdvectPlan):
     return out
 
 
-def _use_polar_k2(plan: AdvectPlan, fields) -> bool:
-    """Gate for the two-tier polar band window: enabled in the plan
-    (QD_ADV_POLAR_K2 > k_lon with coverable rows), Pallas available on this
-    chip (single-chip TPU f32 — the SPMD path keeps the audited gather),
-    and the scoped-VMEM estimate for the wide unrolled window fits."""
-    if not plan.k2 or plan.exact2_rows == plan.exact_rows:
-        return False
-    if plan.mesh is not None:
-        return False
-    from .. import flags as _flags
-    if not _flags.enabled("QD_PALLAS_ADVECT"):
-        return False
-    if fields.dtype != jnp.float32:
-        return False
-    try:
-        if jax.default_backend() != "tpu" or jax.device_count() != 1:
-            return False
-    except Exception:
-        return False
-    return _polar_k2_vmem_ok(plan, fields.shape)
-
-
-def _polar_k2_vmem_ok(plan: AdvectPlan, shape) -> bool:
-    """Mosaic's scoped-VMEM need for the unrolled rotate accumulation grows
-    ∝ passes × operand bytes (measured: 78 MiB for a 95-pass window on one
-    1.04-MB 361×720 field — pallas_advect.use_pallas_advect). The band
-    operand is only the polar rows + margins, so wide windows fit where the
-    full-grid form cannot; keep the estimate under 64 MiB of the 100-MiB
-    scoped limit."""
-    import math
-    M, H, W = shape
-    n_band = len(plan.exact_rows)
-    margin = plan.k_lat + 1
-    hb = n_band + 4 * margin
-    passes = ((math.ceil(plan.b_lat) + math.floor(plan.b_lat) + 2)
-              * (math.ceil(plan.b_lon2) + math.floor(plan.b_lon2) + 2))
-    Wp = math.ceil(W / 128) * 128
-    hbp = math.ceil(hb / 8) * 8
-    return passes * M * hbp * Wp * 4 * 0.8 < 64 * 1024 * 1024
-
-
-def _polar_band_window(fields, dep_j, dep_i, plan: AdvectPlan, bands, out,
-                       interpret=False):
-    """Tier-2 correction: ONE wide masked-roll window pass over the merged
-    polar bands in VMEM (ops/pallas_advect.py kernel), replacing the
-    generic gather for every exact row whose lon offset bound is ≤ plan.k2.
-
-    Exactness: identical bilinear corner weights; the lat rolls wrap within
-    the merged band, but every kept row's |Δlat| ≤ k_lat < margin keeps its
-    corner reads inside its own half. Non-kept rows (margins, junction) get
-    identity departure points — their outputs are discarded. Rows beyond k2
-    (plan.exact2_rows) are overwritten by the caller's gather."""
-    import math
-    from .pallas_advect import advect_windowed_pallas
-    M, H, W = fields.shape
-    n_top, n_bot = bands
-    margin = plan.k_lat + 1
-    ms = list(range(-math.ceil(plan.b_lat), math.floor(plan.b_lat) + 2))
-    ks2 = list(range(-math.ceil(plan.b_lon2), math.floor(plan.b_lon2) + 2))
-
-    lo0 = H - n_bot - margin
-    band_t = jnp.concatenate(
-        [fields[:, H - margin:], fields[:, :n_top + margin]], axis=1)
-    band_b = jnp.concatenate([fields[:, lo0:], fields[:, :margin]], axis=1)
-    hb_t = band_t.shape[1]
-    B = jnp.concatenate([band_t, band_b], axis=1)
-    hb = B.shape[1]
-
-    dtype = fields.dtype
-    jj = jax.lax.broadcasted_iota(jnp.int32, (hb, W), 0).astype(dtype)
-    ii = jax.lax.broadcasted_iota(jnp.int32, (hb, W), 1).astype(dtype)
-    dj, di = jj, ii                       # identity for non-kept rows
-    dj = jax.lax.dynamic_update_slice_in_dim(
-        dj, dep_j[:n_top] + margin, margin, axis=0)
-    di = jax.lax.dynamic_update_slice_in_dim(
-        di, dep_i[:n_top], margin, axis=0)
-    off_b = hb_t + margin
-    dj = jax.lax.dynamic_update_slice_in_dim(
-        dj, dep_j[H - n_bot:] - lo0 + hb_t, off_b, axis=0)
-    di = jax.lax.dynamic_update_slice_in_dim(
-        di, dep_i[H - n_bot:], off_b, axis=0)
-
-    outB = advect_windowed_pallas(B, dj, di, ms, ks2, interpret=interpret)
-    out = jax.lax.dynamic_update_slice_in_dim(
-        out, outB[:, margin:margin + n_top], 0, axis=1)
-    out = jax.lax.dynamic_update_slice_in_dim(
-        out, outB[:, off_b:off_b + n_bot], H - n_bot, axis=1)
-    return out
-
-
 def _windowed_accumulate_spmd(fields, oj, oi, fj, fi, ms, ks, plan):
     """Multi-chip path of the windowed accumulation: one K-wide longitude
     halo exchange (2 collective-permutes) per call via shard_map, then every
     (m, k) shift is a LOCAL slice of the padded block — numerically identical
     to the global jnp.roll loop, which GSPMD would otherwise lower as one
-    collective-permute per lon shift (~10-12 per call, ~900/step total at
-    181×360; perf-notes "Multi-chip lowering").
+    collective-permute per lon shift (~10-12 per call; counted by
+    scripts/analyze_sharding.py).
 
     Returns None when not applicable (no mesh attached / single device /
     shard narrower than the halo), signalling the caller to use the global
@@ -451,11 +326,10 @@ def _exact_bands(exact_rows, H):
 def _use_polar_matmul(plan) -> bool:
     """Single-chip only: the one-hot contraction mixes longitude globally,
     which under the lon mesh would lower to different collectives than the
-    audited gather path (perf-notes 'Multi-chip lowering').
+    audited gather path (scripts/analyze_sharding.py).
 
-    Default OFF: the same-session A/B measured no gain (best-of 0.3408 vs
-    0.3346 ms/step gather) — building the [R,W,W] selection tensor costs the
-    bandwidth the gather saves (perf-notes 'Negative results')."""
+    Default OFF: building the [R,W,W] selection tensor moves about as many
+    bytes as the gather saves. Not yet measured on the GPU."""
     from .. import flags
     if not flags.enabled("QD_ADV_POLAR_MATMUL"):
         return False
@@ -468,14 +342,11 @@ def _use_polar_matmul(plan) -> bool:
 def _bilinear_band_matmul(band, dep_j_local, dep_i, W):
     """One-hot-matmul form of _bilinear_band_gather.
 
-    XLA's TPU gather costs ∝ index rows (docs/perf-notes.md), and the polar
-    exact-row correction was measured as the hottest op block of the step
-    (~28 µs/step across the advection sites, more than the whole ocean
-    megakernel). Only the LON offset is unbounded at the poles (the plan's
-    velocity cap keeps |Δlat| < 1 row), so the wrap gather factors into
+    Only the LON offset is unbounded at the poles (the plan's velocity cap
+    keeps |Δlat| < 1 row), so the wrap gather factors into
       out[i] = Σ_h wlat[h,i] · (S @ band[:, h, :])[i]
     with S the [W,W] two-banded bilinear lon-selection matrix per output
-    row — an MXU contraction (precision=HIGHEST keeps f32-grade products;
+    row — a matrix contraction (precision=HIGHEST keeps f32-grade products;
     the sum over lon adds exact zeros) — and a masked accumulation over the
     band's few rows for lat. Numerics match the gather to ~1 ulp.
     """

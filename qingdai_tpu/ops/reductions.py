@@ -26,7 +26,7 @@ def area_mean(x: jax.Array, w: jax.Array, mask: jax.Array | None = None) -> jax.
 # Compensated (float-float) summation — accumulation islands for the budget
 # closure diagnostics. The reference accumulates its global closure sums in
 # f64 NumPy (hydrology.py:270-340, energy.py:494-538, routing.py:320-331);
-# the TPU model runs f32, where a plain 65k-element tree sum carries ~1e-6
+# the model runs f32, where a plain 65k-element tree sum carries ~1e-6
 # relative error — the same order as the physical residuals being measured.
 # A double-single pairwise reduction keeps ~48 bits through the sum, so the
 # emitted f32 scalar is correct to its last ulp and the residual floor is
@@ -94,10 +94,9 @@ def sum_compensated(x: jax.Array) -> jax.Array:
     ops, no cross-shard data motion — leaving one (lon,) row whose final
     tree is the only cross-shard stage (a ~1 KB collective instead of the
     full-field all-gather a raveled global tree would force). Single-device
-    runtimes take the flat ravel tree, which XLA fuses tighter (the 2-stage
-    form measured ~35% slower per coupled step on TPU v5e together with the
-    other SPMD-safe forms; tests/test_sharding_collectives.py runs on the
-    8-device mesh so the SPMD property stays locked)."""
+    runtimes take the flat ravel tree, which XLA fuses tighter
+    (tests/test_sharding_collectives.py runs on the 8-device mesh so the
+    SPMD property stays locked)."""
     from .. import flags
     if not flags.enabled("QD_FF_SUMS"):
         # A/B bound on the float-float machinery's step cost (accuracy
@@ -149,70 +148,74 @@ def area_mean_compensated(x: jax.Array, w: jax.Array,
 
 
 def _median_bisect_stats(x: jax.Array):
-    """(n_positive, [k1-th, k2-th] order statistics) by value-range bisection.
+    """(n_positive, [k1-th, k2-th] order statistics of the positive entries),
+    exact, by bisection over their bit patterns.
 
-    Each of the fixed-count iterations is one fused compare+count pass over
-    x; the interval shrinks to max·2⁻ⁱᵗᵉʳˢ, below one ulp of the data type,
-    so each statistic matches the sort-based one to roundoff."""
+    Positive IEEE floats order like their bit patterns read as integers, so
+    each order statistic is the smallest pattern b with count(x ≤ b) ≥ k+1.
+    Each fixed-count pass is one fused compare+count over x; after one pass
+    per bit the interval is a single pattern — the statistic itself, equal
+    to the sort form's. The native shape is kept, so a lon-sharded field
+    bisects with per-shard partial counts + scalar all-reduces."""
+    itype = jnp.int64 if x.dtype == jnp.float64 else jnp.int32
+    bits = jax.lax.bitcast_convert_type(x, itype)
     pos = x > 0.0
     n = jnp.sum(pos)
     # order statistics (0-indexed): numpy median averages k1=(n-1)//2, k2=n//2
     k = n.astype(jnp.int32)
     k12 = jnp.stack([jnp.maximum((k - 1) // 2, 0), jnp.maximum(k // 2, 0)])
-    neg_inf = jnp.asarray(-jnp.inf, x.dtype)
-    hi0 = jnp.maximum(jnp.max(jnp.where(pos, x, neg_inf)), 0.0)
-    lo0 = jnp.zeros((2,), x.dtype)
-    hi0 = jnp.broadcast_to(hi0, (2,)).astype(x.dtype)
-    iters = 62 if x.dtype == jnp.float64 else 34
+    lo0 = jnp.zeros((2,), itype)
+    hi0 = jnp.broadcast_to(jnp.max(jnp.where(pos, bits, 0)), (2,))
     axes = tuple(range(1, x.ndim + 1))
 
     def body(_, carry):
         lo, hi = carry
-        mid = 0.5 * (lo + hi)
-        # count of positives <= mid, per target: smallest v with
-        # count >= k+1 is the k-th order statistic (0-indexed)
+        mid = lo + (hi - lo) // 2
         mid_b = mid.reshape((2,) + (1,) * x.ndim)
-        cnt = jnp.sum(pos[None] & (x[None] <= mid_b), axis=axes)
+        cnt = jnp.sum(pos[None] & (bits[None] <= mid_b), axis=axes)
         ge = cnt >= (k12 + 1)
-        return jnp.where(ge, lo, mid), jnp.where(ge, mid, hi)
+        return jnp.where(ge, lo, mid + 1), jnp.where(ge, mid, hi)
 
-    lo, hi = jax.lax.fori_loop(0, iters, body, (lo0, hi0))
-    return n, hi
+    iters = 8 * jnp.dtype(itype).itemsize
+    lo, hi = jax.lax.fori_loop(0, iters, body, (lo0, hi0.astype(itype)))
+    return n, jax.lax.bitcast_convert_type(hi, x.dtype)
 
 
-@partial(jax.custom_jvp, nondiff_argnums=(1,))
-def masked_median_of_positive(x: jax.Array, fallback: float = 1e-6) -> jax.Array:
+@partial(jax.custom_jvp, nondiff_argnums=(1, 2))
+def masked_median_of_positive(x: jax.Array, fallback: float = 1e-6,
+                              sharded: bool = False) -> jax.Array:
     """Median over strictly positive entries of x; ``fallback`` if none.
 
-    On-device re-expression of ``np.median(x[x > 0])`` (physics.py:299-303).
-    Instead of a full sort (O(N log N) and ~0.1 ms for the 181×360 grid every
-    step), the two middle order statistics are found by fixed-count bisection
-    on the value range — ~30 cheap HBM passes; matches the sort-based median
-    to roundoff (asserted in tests/test_ops.py). The jnp form keeps the
-    native shape so a lon-sharded 2-D field bisects with per-shard partial
-    counts + scalar all-reduces (a ravel would force a full all-gather).
+    On-device re-expression of ``np.median(x[x > 0])`` (physics.py:299-303),
+    exact in both forms. An unsharded field takes one sort
+    (:func:`masked_median_of_positive_sort`): on the GPU that measured about
+    twice as fast per coupled step as a 34-pass bisection, whose passes are
+    each a small reduction kernel. A lon-sharded field (``sharded``: the
+    caller's grid has a mesh attached) takes the bit-pattern bisection
+    (``_median_bisect_stats``), which reduces shard-locally where a sort
+    would all-gather the field; the two return the same value.
 
     Differentiation: a custom JVP supplies the exact generic-point
     derivative — the median tracks its defining order-statistic element(s),
     so d med = ½·(dx[i₁] + dx[i₂]) with i₁/i₂ the positive elements nearest
     the two middle order statistics (the same element twice for odd counts).
-    Autodiff through the bisection loop instead attributes the derivative to
-    the MAX element (hi0 is the loop's only data-dependent input) — wrong at
-    every point — and its unrolled 34-select backward graph generated f32
-    NaNs; both were measured before this rule existed (docs/19). Also makes
-    the Pallas forward path differentiable (the JVP never sees the kernel).
-    The argmin in the JVP ravels, so adjoint traces of a lon-sharded field
-    will all-gather — adjoints currently run single-chip; acceptable.
+    Autodiff through a bisection loop instead attributes the derivative to
+    the MAX element (its only data-dependent input) — wrong at every point —
+    and its unrolled 34-select backward graph generated f32 NaNs; both were
+    measured before this rule existed (docs/19). The argmin in the JVP
+    ravels, so adjoint traces of a lon-sharded field will all-gather —
+    adjoints currently run single-device; acceptable.
     """
-    if x.dtype == jnp.float32 and _use_pallas_median():
-        return _median_pos_pallas(x, fallback)
-    n, hi = _median_bisect_stats(x)
-    med = 0.5 * (hi[0] + hi[1])
-    return jnp.where(n > 0, med, jnp.asarray(fallback, x.dtype))
+    with jax.named_scope("precip_median"):
+        if not sharded:
+            return masked_median_of_positive_sort(x, fallback)
+        n, hi = _median_bisect_stats(x)
+        return jnp.where(n > 0, 0.5 * (hi[0] + hi[1]),
+                         jnp.asarray(fallback, x.dtype))
 
 
 @masked_median_of_positive.defjvp
-def _masked_median_jvp(fallback, primals, tangents):
+def _masked_median_jvp(fallback, sharded, primals, tangents):
     (x,), (dx,) = primals, tangents
     n, hi = _median_bisect_stats(x)
     med = jnp.where(n > 0, 0.5 * (hi[0] + hi[1]),
@@ -228,78 +231,9 @@ def _masked_median_jvp(fallback, primals, tangents):
     return med, jnp.where(n > 0, dmed, jnp.zeros_like(dmed))
 
 
-def _median_pos_pallas_kernel(x_ref, out_ref):
-    """All 34 bisection iterations over a VMEM-resident block.
-
-    The jnp bisection emits 34 separate ~1 µs HBM-pass kernels per median;
-    here the array (260 KB at 181×360) is loaded into VMEM once and the
-    count loop runs entirely in-kernel. No gather/scatter is involved, so
-    this sidesteps Mosaic's dynamic-gather limitation (perf-notes backlog #1).
-    Padding convention: the caller pads with -1.0 (never counted as positive).
-    Counts are f32 sums — exact below 2^24 elements.
-    """
-    import jax.numpy as jnp
-    x = x_ref[:]
-    pos = x > 0.0
-    n = jnp.sum(jnp.where(pos, 1.0, 0.0))
-    k = n.astype(jnp.int32)
-    k1 = jnp.maximum((k - 1) // 2, 0) + 1   # 1-indexed target counts
-    k2 = jnp.maximum(k // 2, 0) + 1
-    neg = jnp.asarray(-jnp.inf, x.dtype)
-    hi0 = jnp.maximum(jnp.max(jnp.where(pos, x, neg)), 0.0)
-    z = jnp.asarray(0.0, x.dtype)
-
-    def body(_, c):
-        lo1, hi1, lo2, hi2 = c
-        m1 = 0.5 * (lo1 + hi1)
-        m2 = 0.5 * (lo2 + hi2)
-        c1 = jnp.sum(jnp.where(pos & (x <= m1), 1.0, 0.0))
-        c2 = jnp.sum(jnp.where(pos & (x <= m2), 1.0, 0.0))
-        ge1 = c1 >= k1.astype(c1.dtype)
-        ge2 = c2 >= k2.astype(c2.dtype)
-        return (jnp.where(ge1, lo1, m1), jnp.where(ge1, m1, hi1),
-                jnp.where(ge2, lo2, m2), jnp.where(ge2, m2, hi2))
-
-    lo1, hi1, lo2, hi2 = jax.lax.fori_loop(0, 34, body, (z, hi0, z, hi0))
-    out_ref[0, 0] = 0.5 * (hi1 + hi2)
-    out_ref[0, 1] = n
-
-
-def _median_pos_pallas(x: jax.Array, fallback: float) -> jax.Array:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    flat = x.ravel()
-    N = flat.shape[0]
-    cols = 128
-    rows = -(-N // cols)
-    pad = rows * cols - N
-    if pad:
-        flat = jnp.concatenate([flat, jnp.full((pad,), -1.0, flat.dtype)])
-    blk = flat.reshape(rows, cols)
-    out = pl.pallas_call(
-        _median_pos_pallas_kernel,
-        out_shape=jax.ShapeDtypeStruct((1, 2), flat.dtype),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-    )(blk)
-    return jnp.where(out[0, 1] > 0, out[0, 0], jnp.asarray(fallback, x.dtype))
-
-
-def _use_pallas_median() -> bool:
-    from .. import flags
-    if not flags.enabled("QD_PALLAS_MEDIAN"):
-        return False
-    try:
-        # single-chip only: the VMEM-resident kernel ravels the field, which
-        # under SPMD would force an all-gather; the jnp bisection path reduces
-        # shard-locally instead
-        return jax.default_backend() == "tpu" and jax.device_count() == 1
-    except Exception:
-        return False
-
-
 def masked_median_of_positive_sort(x: jax.Array, fallback: float = 1e-6) -> jax.Array:
-    """Sort-based exact reference implementation (kept for tests/fallback)."""
+    """Exact median of the positive entries by one sort: numpy's mean of the
+    two middle order statistics, rounded once."""
     flat = x.ravel()
     pos = flat > 0.0
     n = jnp.sum(pos)

@@ -73,7 +73,7 @@ def _conv1d_lon(F: jax.Array, kernel: tuple, mode: str,
     if r == 0:
         return F
     W = F.shape[1]
-    # single-device: the pad+slice form fuses tighter on TPU (the roll+seam
+    # single-device: the pad+slice form fuses tighter (the roll+seam
     # form is only needed for SPMD halo locality); tiny test grids likewise
     if jax.device_count() == 1 or W < 3 * r:
         return _conv1d(F, kernel, axis=1, mode=mode)

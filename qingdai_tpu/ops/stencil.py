@@ -3,8 +3,7 @@
 These are the hot kernels of the model — the reference applies the Laplacian
 pair (∇⁴ via two ∇²) to up to 5 atmosphere fields plus 3 ocean fields every
 step (/root/reference/pygcm/dynamics.py:144-213, ocean.py:100-152). Here they
-are pure jnp stencils that XLA fuses into a handful of HBM passes; a Pallas
-fast path for the fused multi-field filter lives in ops/pallas_stencil.py.
+are pure jnp stencils that XLA fuses into a handful of passes over memory.
 
 Semantics follow the reference exactly:
 - longitude periodic (roll), latitude uses np.gradient one-sided edges
@@ -102,12 +101,6 @@ def hyperdiffuse_multi(F: jax.Array, k4_stack, dt: float, n_substeps: int,
     cos = coslat[None]
     out = F
     ndev = _spmd_ready(mesh, axis_name, F.shape[-1], 2)
-    if ndev is None:
-        # single-chip TPU: the whole two-Laplacian chain VMEM-resident
-        from .pallas_stencil import hyperdiffuse_pallas, use_pallas_hyper4
-        if use_pallas_hyper4(F.shape, F.dtype):
-            return hyperdiffuse_pallas(F, k4_stack, dt, n, dlat, dlon,
-                                       coslat, a)
     if ndev is not None:
         from jax import shard_map
         from jax.sharding import PartitionSpec as P
@@ -129,10 +122,11 @@ def hyperdiffuse_multi(F: jax.Array, k4_stack, dt: float, n_substeps: int,
         for _ in range(n):
             out = out - k4_stack * l4_sm(out, cos) * sub_dt
         return out
-    for _ in range(n):
-        L = _laplacian_sphere_batched(out, dlat, dlon, cos, a)
-        L2 = _laplacian_sphere_batched(L, dlat, dlon, cos, a)
-        out = out - k4_stack * L2 * sub_dt
+    with jax.named_scope("hyper4"):
+        for _ in range(n):
+            L = _laplacian_sphere_batched(out, dlat, dlon, cos, a)
+            L2 = _laplacian_sphere_batched(L, dlat, dlon, cos, a)
+            out = out - k4_stack * L2 * sub_dt
     return out
 
 

@@ -1,9 +1,9 @@
 """Multi-chip SPMD: device mesh + sharding layout for the world state.
 
-The reference is strictly single-process (SURVEY.md §2.5); the TPU-native
+The reference is strictly single-process (SURVEY.md §2.5); the multi-device
 scaling axis is the spatial grid. The longitude axis is sharded across the
 mesh ("lon" axis): all stencils reach neighbors through jnp.roll, which the
-XLA SPMD partitioner turns into ICI collective-permutes of one halo column,
+XLA SPMD partitioner turns into collective-permutes of one halo column,
 and the global area-weighted reductions become psums. Latitude stays
 unsharded so the pole-row special cases (polar ring averaging, freeze fix)
 remain local to every shard.

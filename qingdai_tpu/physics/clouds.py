@@ -1,6 +1,6 @@
 """Cloud / precipitation / albedo parameterizations.
 
-TPU re-expression of /root/reference/pygcm/physics.py (convergence precip,
+Re-expression of /root/reference/pygcm/physics.py (convergence precip,
 hybrid humidity-aware precip with on-device median scaling, cloud sources,
 orographic enhancement, dynamic albedo synthesis).
 """
@@ -118,7 +118,8 @@ def diagnose_precipitation_hybrid(grid: Grid, u, v, cloud_cover, P_cond,
 
     div = divergence(grid, u, v)
     pos = jnp.maximum(0.0, -(div - cfg.D_crit))
-    scale = jnp.maximum(masked_median_of_positive(pos, fallback=1e-12), 1e-12)
+    scale = jnp.maximum(masked_median_of_positive(
+        pos, 1e-12, grid.mesh is not None), 1e-12)
     F_div = jnp.where(jnp.any(pos > 0), jnp.clip(pos / scale, 0.0, 5.0), 0.0)
 
     F_orog = 1.0 if orog_factor is None else jnp.clip(orog_factor, 1.0, 3.0)

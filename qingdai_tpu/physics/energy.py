@@ -1,6 +1,6 @@
 """Explicit energy budget: SW/LW partition, surface integrators, sea ice.
 
-TPU re-expression of /root/reference/pygcm/energy.py (P006). All branches and
+Re-expression of /root/reference/pygcm/energy.py (P006). All branches and
 boolean-mask updates become ``jnp.where`` selects; the greenhouse "lock"
 (energy.py:118-135) and the v2 cloud-optical LW (energy.py:161-234) are
 preserved. The autotune controller's mutable (lw_eps0, lw_kc) become scalar

@@ -1,6 +1,6 @@
 """Hydrology closure: rain/snow split, snowpack (SWE), land bucket, diagnostics.
 
-TPU re-expression of /root/reference/pygcm/hydrology.py (P009/P019).
+Re-expression of /root/reference/pygcm/hydrology.py (P009/P019).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference routes accumulated runoff mass *sequentially* along a
 topological ``flow_order`` in a Python loop (/root/reference/pygcm/routing.py:261-298).
-On TPU that loop becomes a pass over topological *levels* (longest-path depth,
+Here that loop becomes a pass over topological *levels* (longest-path depth,
 precomputed offline): at level ℓ every cell of that level has already received
 all upstream mass, so the whole level routes at once. Because the level
 boundaries inside the level-sorted cell list are *static*, each level is a

@@ -3,7 +3,7 @@
 The reference scatters prognostic state across ``SpectralModel``,
 ``WindDrivenSlabOcean``, ``PopulationManager``, ``PhytoManager`` attributes and
 driver-local arrays (SURVEY.md §1). Here the whole planet is one JAX pytree,
-advanced by a single jitted step — the TPU-native equivalent of the
+advanced by a single jitted step — the functional equivalent of the
 double-buffering discipline in /root/reference/pygcm/numerics/double_buffer.py.
 """
 

@@ -26,7 +26,7 @@ The reference has no ensemble, no adjoint, and no assimilation machinery
 this is a beyond-reference capability built on the pure functional step.
 
 Usage:
-  python -m scripts.assimilate --members 8 --cycles 8 --json      # TPU
+  python -m scripts.assimilate --members 8 --cycles 8 --json      # GPU
   python -m scripts.assimilate --nlat 19 --nlon 36 --cycle-steps 12 \
       --members 6 --cycles 3                                       # CPU-fast
 
@@ -79,7 +79,7 @@ def main(argv=None):
     p.add_argument("--warmup-days", type=int, default=0,
                    help="advance the base state this many days before the "
                         "experiment (out of the damped cold-start "
-                        "transient; ~0.1 s/day on TPU at 181x360)")
+                        "transient)")
     p.add_argument("--burnin-cycles", type=int, default=5,
                    help="chaos mode: cycles of free decorrelation before "
                         "assimilation starts")
@@ -110,8 +110,8 @@ def main(argv=None):
                         "demonstration for a damped system whose "
                         "perfect-model errors self-decay")
     p.add_argument("--obs-mix", default=None,
-                   help="multivariate observing network (VERDICT r4 item "
-                        "5): comma-separated field:count[:err] blocks, "
+                   help="multivariate observing network: "
+                        "comma-separated field:count[:err] blocks, "
                         "e.g. 'T_s:250:0.5,sst:150:0.3,q:100:5e-4' (err "
                         "defaults to --obs-sigma). Replaces the single "
                         "--obs-count T_s network; every observed field "

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Same-session A/B of a TPU-only knob on the full coupled model.
+"""Same-session A/B of a knob on the full coupled model.
 
-Per docs/perf-notes.md "Session variance", only interleaved same-session
-pairs are comparable. Runs the full 181×360 coupled model with the knob at
-each value, interleaved A,B,A,B,..., and reports per-step times.
+Only interleaved same-session pairs on one device are comparable. Runs the
+full 181×360 coupled model with the knob at each value, interleaved
+A,B,A,B,..., and reports per-step times.
 
-  python -m scripts.bench_ab QD_PALLAS_OCEAN 1 0 --rounds 3
+  python -m scripts.bench_ab QD_ADV_BAND_MERGE 1 0 --rounds 3
 """
 
 import argparse

@@ -24,7 +24,7 @@ def main():
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="capture a JAX profiler trace of one timed chunk "
                          "into DIR (view with tensorboard or parse the "
-                         "xplane.pb; see docs/perf-notes.md)")
+                         "xplane.pb with jax.profiler.ProfileData)")
     args = ap.parse_args()
 
     extra_env = {}

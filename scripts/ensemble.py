@@ -3,12 +3,10 @@
 
 The reference can only produce an ensemble by running its ~0.25 sim-years/hour
 NumPy loop N times (/root/reference/scripts/run_simulation.py); here the
-members ride one jitted chunk (qingdai_tpu/ensemble.py). Measured on TPU
-v5e-1 at 181×360 the marginal member costs ~0.25 ms/step (vs 0.33 for a
-dedicated run), peaking at 8 members = ~103 aggregate member·sim-years/hour
-(docs/perf-notes.md "Ensemble mode" for the full curve).
+members ride one jitted chunk (qingdai_tpu/ensemble.py). The throughput
+curve against N has not been measured on the GPU yet.
 
-Usage (TPU):
+Usage (GPU):
   python -m scripts.ensemble --members 8 --days 2            # timed bench
   python -m scripts.ensemble --members 8 --days 2 --json     # one JSON line
 
@@ -41,14 +39,12 @@ def main(argv=None):
                    help="advance the ensemble in sequential groups of this "
                         "many members (one [M]-wide vmapped compile reused "
                         "per group) instead of one N-wide vmap — the "
-                        "working-set experiment for the N=16 regression "
-                        "(docs/perf-notes.md 'Ensemble mode')")
+                        "working-set experiment for large N")
     p.add_argument("--donate", action="store_true",
                    help="jit with donate_argnums=0: the ensemble state "
                         "buffers are donated to each chunk call, letting "
                         "XLA alias inputs to outputs — the bounded "
-                        "working-set experiment for the N=16 VMEM "
-                        "strip-mining regression (VERDICT r4 item 8)")
+                        "working-set experiment for large N")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="capture a JAX profiler trace of the timed chunks")
     p.add_argument("--json", action="store_true",

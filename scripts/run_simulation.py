@@ -18,7 +18,7 @@ sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     import jax
-    print("--- Initializing Qingdai TPU GCM ---")
+    print("--- Initializing Qingdai GCM ---")
     print(f"[JAX] devices: {jax.devices()}")
     from qingdai_tpu.world import QingdaiWorld
     world = QingdaiWorld.create_default()

@@ -19,7 +19,7 @@ Objective J = mean of a per-step diagnostic scalar (--objective, default
 Ts_mean) over the window, or over its last --trailing steps.
 
 Both dtypes work: QD_DTYPE=float64 is the conventional adjoint precision
-on CPU; QD_DTYPE=float32 is the TPU path (f64 is unavailable there) and
+on CPU; QD_DTYPE=float32 is the fast accelerator path and
 agrees with f64 to ~2% (docs/19 "float32 adjoints"; regression-locked in
 tests/test_adjoint.py). --fd EPS runs a central-difference check of the
 scalar mode; the authoritative f64 checks live in tests/test_adjoint.py."""

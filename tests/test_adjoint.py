@@ -17,7 +17,7 @@ import pytest
 
 sys.path.insert(0, "/root/repo")
 
-pytestmark = pytest.mark.heavy  # f64 full-model compiles (VERDICT r4 item 7)
+pytestmark = pytest.mark.heavy  # f64 full-model compiles
 
 N_STEPS = 12
 SEG = 3
@@ -189,7 +189,7 @@ def test_calibrate_newton_hits_target(tiny_world):
 
 def test_joint_multiparam_calibration_recovers_truth():
     """calibrate_joint must recover TWO parameters simultaneously from a
-    synthetic truth trajectory (VERDICT r4 item 6): starting from biased
+    synthetic truth trajectory: starting from biased
     priors, Adam on the multi-series trajectory mismatch pulls both
     gh_factor and C_E toward the withheld truth values. The assertion is
     improvement-based (each parameter ends closer than its prior, with

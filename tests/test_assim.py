@@ -22,7 +22,7 @@ import pytest
 
 from qingdai_tpu import assim as A
 
-pytestmark = pytest.mark.heavy  # f64 full-model compiles (VERDICT r4 item 7)
+pytestmark = pytest.mark.heavy  # f64 full-model compiles
 
 
 
@@ -338,7 +338,7 @@ def test_multivariate_update_through_cross_covariance():
 
 
 # ---------------------------------------------------------------------------
-# state-augmented parameter estimation (VERDICT r3 item 7)
+# state-augmented parameter estimation
 # ---------------------------------------------------------------------------
 
 def test_param_analysis_matches_kalman_mean():
@@ -439,7 +439,7 @@ def test_param_estimation_recovers_gh_factor():
 
 
 # ---------------------------------------------------------------------------
-# production-grid OSSE skill record (VERDICT r3 item 2): ASSIM.json
+# production-grid OSSE skill record: ASSIM.json
 # ---------------------------------------------------------------------------
 
 _ASSIM_ART = os.path.join(
@@ -451,7 +451,7 @@ def assim_record():
     import json
     if not os.path.exists(_ASSIM_ART):
         pytest.skip("ASSIM.json not recorded yet (run scripts/assimilate.py "
-                    "on TPU at 181x360 — see docs/20)")
+                    "at 181x360 — see docs/20)")
     with open(_ASSIM_ART) as f:
         return json.load(f)
 

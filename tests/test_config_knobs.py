@@ -86,29 +86,30 @@ def test_phyto_init_random(monkeypatch):
 
 
 def test_trace_time_gates_frozen_at_config_time(monkeypatch):
-    """The QD_PALLAS_*/QD_SPMD_HALO/QD_FF_SUMS gates are consulted while
+    """The QD_SPMD_HALO/QD_FF_SUMS/QD_ADV_* gates are consulted while
     TRACING, which happens after set-and-restore harnesses (bench.py
     --ablate via __graft_entry__._build_world) have restored the env. The
     gates must therefore read the snapshot frozen by SimConfig.from_env(),
-    not the live environment — before qingdai_tpu/flags.py the four
-    -pallas_* ablate rows silently measured the unmodified build."""
+    not the live environment — before qingdai_tpu/flags.py ablate rows
+    silently measured the unmodified build."""
     from qingdai_tpu import flags
     from qingdai_tpu.config import SimConfig
 
-    monkeypatch.setenv("QD_PALLAS_MEDIAN", "0")
+    monkeypatch.setenv("QD_SPMD_HALO", "0")
     monkeypatch.setenv("QD_FF_SUMS", "off")      # word spellings count too
-    monkeypatch.setenv("QD_PALLAS_ADVECT", "yes")  # truthy words enable
+    monkeypatch.setenv("QD_ADV_BAND_MERGE", "yes")  # truthy words enable
     SimConfig.from_env()
-    monkeypatch.delenv("QD_PALLAS_MEDIAN")
+    monkeypatch.delenv("QD_SPMD_HALO")
     monkeypatch.delenv("QD_FF_SUMS")
-    monkeypatch.delenv("QD_PALLAS_ADVECT")
+    monkeypatch.delenv("QD_ADV_BAND_MERGE")
     # env restored, snapshot must still carry the frozen values
-    assert not flags.enabled("QD_PALLAS_MEDIAN")
+    assert not flags.enabled("QD_SPMD_HALO")
     assert not flags.enabled("QD_FF_SUMS")
-    assert flags.enabled("QD_PALLAS_ADVECT")
+    assert flags.enabled("QD_ADV_BAND_MERGE")
     SimConfig.from_env()                          # refreeze from clean env
-    assert flags.enabled("QD_PALLAS_MEDIAN")
+    assert flags.enabled("QD_SPMD_HALO")
     assert flags.enabled("QD_FF_SUMS")
+    assert not flags.enabled("QD_ADV_BAND_MERGE")
 
 
 def test_ff_sums_gate_switches_implementation(monkeypatch):
@@ -132,7 +133,7 @@ def test_ff_sums_gate_switches_implementation(monkeypatch):
 
 
 def test_build_world_extra_env_reaches_trace_time_gates(monkeypatch):
-    """bench.py --ablate disables kernels via _build_world(extra_env=...),
+    """bench.py --ablate switches subsystems via _build_world(extra_env=...),
     which restores the env before the jit trace runs — the frozen snapshot
     must still carry the ablate value at trace time (the exact path that
     silently measured the unmodified build before flags.py)."""
@@ -143,18 +144,18 @@ def test_build_world_extra_env_reaches_trace_time_gates(monkeypatch):
 
     mdl, state = _build_world(13, 24, with_network=False,
                               extra_env={"QD_FF_SUMS": "0",
-                                         "QD_PALLAS_MEDIAN": "0"})
+                                         "QD_ADV_BAND_MERGE": "1"})
     import os
     assert os.environ.get("QD_FF_SUMS") is None          # env restored...
     assert not flags.enabled("QD_FF_SUMS")               # ...snapshot kept
-    assert not flags.enabled("QD_PALLAS_MEDIAN")
+    assert flags.enabled("QD_ADV_BAND_MERGE")
     from qingdai_tpu.config import SimConfig
     SimConfig.from_env()
     assert flags.enabled("QD_FF_SUMS")
 
 
 def test_plankton_dist_on_mismatch_vocabulary(monkeypatch):
-    """Reference vocabulary parity (ADVICE r2): the netCDF path accepts
+    """Reference vocabulary parity: the netCDF path accepts
     keep|reset (phyto.py:672-681); the NPZ-autosave path's words are
     'random'/'default' (phyto.py:614-623) — 'default' must alias reset,
     'random' must survive as its own mode, anything else = keep."""

@@ -2,7 +2,7 @@
 (member 0) and decorrelate under perturbation (members 1+).
 
 The reference has no ensemble capability (one sequential NumPy loop,
-/root/reference/scripts/run_simulation.py:1760-2490); this is the TPU-native
+/root/reference/scripts/run_simulation.py:1760-2490); this is the vmapped
 extension built on the pure functional chunk (qingdai_tpu/ensemble.py).
 """
 
@@ -17,7 +17,7 @@ from qingdai_tpu import model as M
 from qingdai_tpu import topography as topo
 from qingdai_tpu.config import SimConfig
 
-pytestmark = pytest.mark.heavy  # f64 full-model compiles (VERDICT r4 item 7)
+pytestmark = pytest.mark.heavy  # f64 full-model compiles
 
 
 
@@ -49,7 +49,7 @@ def test_member0_replays_single_planet():
 
     On CPU at f32 the vmapped lowering evaluates the identical op graph with
     a leading batch axis; reductions stay per-member, so member 0 matches the
-    single-planet run bit-for-bit here (tolerance guards TPU layout changes).
+    single-planet run bit-for-bit here (tolerance guards layout changes).
     """
     mdl = _build()
     single = M.init_world(mdl)

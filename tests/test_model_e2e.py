@@ -1,5 +1,5 @@
 """End-to-end coupled-model smoke tests on a tiny grid: stability, finiteness,
-daily-boundary firing, subsystem toggles — the TPU analogue of the reference's
+daily-boundary firing, subsystem toggles — the analogue of the reference's
 tiny-grid driver smoke test (tests/test_phase0_basics.py:91-113)."""
 
 import os

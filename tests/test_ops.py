@@ -2,7 +2,7 @@
 
 These reproduce the *mathematical definitions* used by the reference
 (np.gradient-based spherical Laplacian, 1-2-1 Shapiro, scipy Gaussian filter,
-bilinear wrap interpolation) as plain NumPy oracles and check the TPU ops
+bilinear wrap interpolation) as plain NumPy oracles and check the jnp ops
 against them.
 """
 
@@ -173,13 +173,17 @@ def test_masked_median_gradient(rng):
 
 
 def test_masked_median_bisect_matches_sort(rng):
-    from qingdai_tpu.ops.reductions import masked_median_of_positive_sort
+    """The bisection statistics the JVP rule locates its elements with agree
+    with the sort form the forward uses."""
+    from qingdai_tpu.ops.reductions import (_median_bisect_stats,
+                                            masked_median_of_positive_sort)
     for n_zero in (0, 700):  # even and odd positive counts across trials
         for trial in range(4):
             x = rng.standard_normal(1600)
             if n_zero:
                 x[:n_zero] = -np.abs(x[:n_zero])
-            b = float(masked_median_of_positive(jnp.asarray(x)))
+            _, hi = _median_bisect_stats(jnp.asarray(x))
+            b = float(0.5 * (hi[0] + hi[1]))
             s = float(masked_median_of_positive_sort(jnp.asarray(x)))
             ref = float(np.median(x[x > 0]))
             np.testing.assert_allclose(b, ref, rtol=1e-12)
@@ -279,107 +283,31 @@ def test_area_mean_compensated(rng, small_grid):
     assert abs(got - oracle) / oracle < 1e-6  # bounded by per-product rounding
 
 
-def test_pallas_windowed_advect_matches_jnp():
-    """The VMEM window megakernel (ops/pallas_advect.py) must reproduce the
-    jnp masked-roll accumulation exactly (same weights, same order) —
-    verified in interpret mode so the check runs on CPU."""
-    import math
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from qingdai_tpu.ops import advect as A
-    from qingdai_tpu.ops.pallas_advect import advect_windowed_pallas
-
-    rng = np.random.default_rng(7)
-    H, W, M = 19, 36, 3
-    fields = jnp.asarray(rng.normal(280, 20, (M, H, W)), jnp.float32)
-    u = jnp.asarray(rng.normal(0, 60, (H, W)), jnp.float32)
-    v = jnp.asarray(rng.normal(0, 30, (H, W)), jnp.float32)
-    a, dlat, dlon, dt = 6.371e6, math.pi / (H - 1), 2 * math.pi / W, 300.0
-    cos = jnp.maximum(jnp.cos(jnp.linspace(-math.pi / 2, math.pi / 2, H)),
-                      1e-6)[:, None] * jnp.ones((H, W))
-    dep_j, dep_i = A.departure_indices((H, W), u, v, dt, a, dlat, dlon,
-                                       cos, jnp.float32)
-    ms = list(range(-2, 3))
-    ks = list(range(-3, 4))
-    # jnp reference accumulation (same math as _advect_windowed's loop)
-    jj = jax.lax.broadcasted_iota(jnp.int32, (H, W), 0)
-    ii = jax.lax.broadcasted_iota(jnp.int32, (H, W), 1)
-    j0, i0 = jnp.floor(dep_j), jnp.floor(dep_i)
-    fj = (dep_j - j0).astype(jnp.float32)
-    fi = (dep_i - i0).astype(jnp.float32)
-    oj = j0.astype(jnp.int32) - jj
-    oi = i0.astype(jnp.int32) - ii
-    ref = jnp.zeros_like(fields)
-    for m in ms:
-        Wm = jnp.where(oj == m, 1.0 - fj, 0.0) + jnp.where(oj == m - 1, fj, 0.0)
-        for k in ks:
-            Wk = jnp.where(oi == k, 1.0 - fi, 0.0) + jnp.where(oi == k - 1, fi, 0.0)
-            ref = ref + (Wm * Wk)[None] * jnp.roll(fields, (-m, -k), axis=(1, 2))
-    got = advect_windowed_pallas(fields, dep_j, dep_i, ms, ks, interpret=True)
-    # interpret mode contracts the FMA chain slightly differently — one-ulp
-    # (~1e-7 rel) differences are expected, anything structural is O(1)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-5, atol=1e-4)
+_MEDIAN_CASES = {
+    "even_count": np.array([0.0, -1.0, 3.0, 1.0, 2.5, 7.0]),
+    "ties": np.array([1.0, 2.0, 2.0, 2.0, 4.0, 9.0, -3.0, 2.0]),
+    "one_positive": np.array([-1.0, 0.0, 5.0, -2.0]),
+    "no_positive": np.array([-1.0, 0.0, -0.5]),
+    "skewed_field": np.concatenate([np.geomspace(1e-9, 1e3, 4001), -np.ones(9)]),
+}
 
 
-def test_pallas_hyper4_matches_jnp():
-    """The VMEM-fused nabla4 chain (ops/pallas_stencil.py) must match
-    hyperdiffuse_multi's jnp form (interpret mode, CPU)."""
-    import math
-    import jax.numpy as jnp
-    import numpy as np
-    from qingdai_tpu.ops.stencil import hyperdiffuse_multi
-    from qingdai_tpu.ops.pallas_stencil import hyperdiffuse_pallas
-
-    rng = np.random.default_rng(3)
-    M, H, W = 4, 19, 36
-    F = jnp.asarray(rng.normal(0, 50, (M, H, W)), jnp.float32)
-    cos = jnp.maximum(jnp.cos(jnp.linspace(-math.pi / 2, math.pi / 2, H)),
-                      0.2)[:, None] * jnp.ones((H, W), jnp.float32)
-    cos = cos.astype(jnp.float32)
-    k4 = jnp.asarray(rng.uniform(1e13, 5e13, (M, 1, 1)), jnp.float32)
-    dlat, dlon, a, dt = math.pi / (H - 1), 2 * math.pi / W, 6.371e6, 300.0
-    for nsub in (1, 2):
-        ref = hyperdiffuse_multi(F, k4, dt, nsub, dlat, dlon, cos, a)
-        got = hyperdiffuse_pallas(F, k4, dt, nsub, dlat, dlon, cos, a,
-                                  interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=1e-5, atol=1e-4)
-
-
-def test_polar_band_window_matches_gather(rng):
-    """Two-tier polar treatment (QD_ADV_POLAR_K2): the wide Pallas band
-    window (interpret mode here) must equal the exact gather on every
-    tier-1 row (offset bound in (k_lon, k2]); tier-2 rows stay with the
-    gather."""
-    import jax.numpy as jnp
-    from qingdai_tpu import constants as const
-    from qingdai_tpu.grid import make_grid
-    from qingdai_tpu.ops import advect as adv
-
-    H, W = 91, 184
-    g = make_grid(H, W)
-    F = jnp.asarray(rng.standard_normal((2, H, W)), jnp.float32)
-    u = jnp.asarray(np.clip(120 * rng.standard_normal((H, W)), -200, 200),
-                    jnp.float32)
-    v = jnp.asarray(np.clip(120 * rng.standard_normal((H, W)), -200, 200),
-                    jnp.float32)
-    dt = 300.0
-    plan = adv.make_advect_plan(H, g.dlat_rad, g.dlon_rad, dt,
-                                const.PLANET_RADIUS,
-                                np.asarray(g.coslat_cap_tiny)[:, 0],
-                                vmax=200.0, k2=12)
-    assert plan.k2 == 12 and len(plan.exact2_rows) < len(plan.exact_rows)
-    dep_j, dep_i = adv.departure_indices(
-        (H, W), u, v, dt, const.PLANET_RADIUS, g.dlat_rad, g.dlon_rad,
-        g.coslat_cap_tiny, F.dtype)
-    ref = adv.bilinear_wrap_gather_multi(F, dep_j, dep_i)
-    bands = adv._exact_bands(plan.exact_rows, H)
-    out = adv._polar_band_window(F, dep_j, dep_i, plan, bands,
-                                 jnp.zeros_like(F), interpret=True)
-    tier1 = [r for r in plan.exact_rows if r not in plan.exact2_rows]
-    assert tier1
-    np.testing.assert_allclose(np.asarray(out)[:, tier1],
-                               np.asarray(ref)[:, tier1],
-                               rtol=1e-5, atol=1e-5)
+@pytest.mark.parametrize("sharded", [False, True], ids=["sort", "bisect"])
+@pytest.mark.parametrize("case", sorted(_MEDIAN_CASES))
+def test_masked_median_f32_matches_numpy(case, sharded):
+    """Both forward forms (sort for an unsharded field, bit-pattern bisection
+    for a lon-sharded one) on f32 equal numpy's median of the positives to
+    one f32 ulp (a median is the mean of two f32 elements, rounded once),
+    equal each other exactly, and take the fallback when nothing is
+    positive."""
+    x = _MEDIAN_CASES[case].astype(np.float32)
+    got = masked_median_of_positive(jnp.asarray(x), 1e-6, sharded)
+    other = masked_median_of_positive(jnp.asarray(x), 1e-6, not sharded)
+    assert float(got) == float(other)
+    assert got.dtype == jnp.float32
+    pos = x[x > 0].astype(np.float64)
+    if pos.size == 0:
+        assert float(got) == np.float32(1e-6)
+        return
+    ref = np.median(pos)
+    assert abs(float(got) - ref) <= np.spacing(np.float32(ref))

@@ -1,12 +1,12 @@
 """Direct numerical parity against the reference implementation.
 
-Steps the TPU atmosphere core and the reference ``SpectralModel.time_step``
+Steps the JAX atmosphere core and the reference ``SpectralModel.time_step``
 (/root/reference/pygcm/dynamics.py:260-667) side by side from identical
 initial state with identical (Teq, isr, albedo) forcing, in float64, and
 compares every prognostic field.
 
 Reference-as-run configuration: time_step called without albedo → Newton Ts
-path, no sea-ice update. The TPU engine reproduces that exactly with
+path, no sea-ice update. The JAX engine reproduces that exactly with
 QD_ENERGY_W=0 (Ts blend weight 0) and QD_USE_SEAICE=0 (h_ice frozen).
 
 Comparison masks out cells whose semi-Lagrangian departure points wrap the
@@ -88,7 +88,7 @@ def test_dynamics_core_parity(ref_modules, monkeypatch, scheme, energy_w,
                         land_mask=land_mask, Cs_ocean=2e8, Cs_land=3e6,
                         Cs_ice=5e6)
 
-    # TPU setup mirroring the reference initial state
+    # JAX setup mirroring the reference initial state
     from qingdai_tpu.config import SimConfig
     from qingdai_tpu.grid import make_grid
     from qingdai_tpu.dynamics import atmos_step

@@ -53,7 +53,7 @@ def test_spectral_parity(ref_path):
 
 def test_population_daily_parity(ref_path, monkeypatch):
     """PopulationManager subdaily energy + daily germination vs the static-S
-    TPU population (spread disabled, K=1: the reference's as-run path)."""
+    JAX population (spread disabled, K=1: the reference's as-run path)."""
     import jax
     import jax.numpy as jnp
     from pygcm.ecology.population import PopulationManager
@@ -256,7 +256,7 @@ def test_individual_pool_parity(ref_path, monkeypatch):
 
     The land mask is an isolated lattice so the reference's sequential
     per-cell loop cannot feed one sampled cell's recruit spill into another
-    sampled cell's magnitude update within the same day (the TPU version
+    sampled cell's magnitude update within the same day (the JAX version
     gathers all columns first)."""
     import types
     import jax.numpy as jnp

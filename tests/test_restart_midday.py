@@ -1,7 +1,6 @@
 """Mid-day restart equivalence: save at a non-day-aligned step, reload into a
-fresh world, continue, and compare against the uninterrupted run (VERDICT r1
-next-round item 6). Exercises the step_chunk day-alignment path selection
-(world.py) and the full-pytree sidecar that carries the clock accumulators,
+fresh world, continue, and compare against the uninterrupted run. Exercises
+the step_chunk day-alignment path selection (world.py) and the full-pytree sidecar that carries the clock accumulators,
 humidity caches, routing buffer and RNG key the reference restart schema
 drops (io/checkpoint.py)."""
 
@@ -105,7 +104,7 @@ def test_midday_resume_without_sidecar_still_loads(tiny_env):
 
 
 def test_netcdf_only_resume_carries_exact_caches_no_deluge(tiny_env):
-    """VERDICT r3 item 4: atmosphere.nc now carries the humidity/cloud flux
+    """atmosphere.nc now carries the humidity/cloud flux
     caches as extra variables (tolerant reference readers ignore them), and
     the loader prefers them over the bootstrap replay — so a NetCDF-only
     resume is cache-exact and the BASELINE.md year-45 fallback-precip deluge

@@ -4,7 +4,7 @@ Each reference script has a counterpart under scripts/; these tests run every
 offline CLI in-process on tiny grids so the command surface can't bit-rot
 silently (a real failure mode: a topography-load regression once made
 run_simulation fall back to procedural generation without erroring).
-Heavy/TPU-bound CLIs (bench.py, scripts/spinup.py, scripts/bench_ab.py,
+Heavy accelerator-bound CLIs (bench.py, scripts/spinup.py, scripts/bench_ab.py,
 glacier_coldstart_compare.py) have their own dedicated tests or require
 hardware and are exercised elsewhere.
 """
@@ -115,7 +115,7 @@ def test_sensitivity_cli(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("QD_N_LAT", "19")
     monkeypatch.setenv("QD_N_LON", "36")
     monkeypatch.setenv("QD_AUTOSAVE_LOAD", "0")
-    # f32: the TPU adjoint precision (docs/19 "float32 adjoints" — the
+    # f32: the fast adjoint precision (docs/19 "float32 adjoints" — the
     # backward sweep is finite in f32 since the median-JVP/renorm/sigmoid
     # fixes; test_adjoint.py locks f32-vs-f64 agreement)
     monkeypatch.setenv("QD_DTYPE", "float32")

@@ -1,7 +1,6 @@
 """Regression lock on the halo-bounded SPMD property: the compiled sharded
 step must contain NO full-field all-gather except inside the routing event
-(the D8 river DAG is global by nature). See scripts/analyze_sharding.py and
-docs/perf-notes.md 'Multi-chip lowering'."""
+(the D8 river DAG is global by nature). See scripts/analyze_sharding.py."""
 
 import re
 

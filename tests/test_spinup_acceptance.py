@@ -1,6 +1,6 @@
 """Climate-quality acceptance: asserts the docs/11.3 phase-2 criteria against
 the recorded spin-up artifact SPINUP.json (produced by `python -m
-scripts.spinup` on TPU; see BASELINE.md for the recorded run).
+scripts.spinup` on an accelerator; see BASELINE.md for the recorded run).
 
 Reference thresholds: /root/reference/docs/11-spin-up-and-restarts.md:49-54
 (|<TOA_net>| ≤ 0.2 W/m², |d<Ts>/dt| < 0.02 K/decade) and :122-137
@@ -19,7 +19,7 @@ ART = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 @pytest.fixture(scope="module")
 def spinup():
     if not os.path.exists(ART):
-        pytest.skip("SPINUP.json not recorded yet (run scripts/spinup.py on TPU)")
+        pytest.skip("SPINUP.json not recorded yet (run scripts/spinup.py)")
     with open(ART) as f:
         return json.load(f)
 

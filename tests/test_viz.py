@@ -1,6 +1,5 @@
 """Functional rendering tests: every panel renders from a real tiny-run
-snapshot and produces a non-trivial file (the reference never tests its viz;
-VERDICT r1 'weak #6' — imagery was only import-covered here too until now)."""
+snapshot and produces a non-trivial file (the reference never tests its viz)."""
 
 import os
 

@@ -246,8 +246,7 @@ def test_plankton_mismatch_random_reinit(tiny_env, monkeypatch):
 def test_plankton_read_error_keeps_state(tiny_env, monkeypatch):
     """A transiently unreadable plankton.nc must KEEP state — not re-init —
     even under dist_on_mismatch=random: the reference resets only on a
-    genuine dims mismatch (phyto.py:942-981), never on a read failure
-    (ADVICE round-3 finding)."""
+    genuine dims mismatch (phyto.py:942-981), never on a read failure."""
     from qingdai_tpu.world import QingdaiWorld
     from qingdai_tpu.io import netcdf as ncio
 
